@@ -8,15 +8,25 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. the card's name and power limit (nvidia-smi);
 2. the nvcc build of every CUDA kernel, all sources compiled together;
-3. kernel checks: each kernel against its plain PyTorch twin on the card;
-4. the main path at full width: a 64 x 2048 x 2048 FakeDataSet stack
+3. kernel checks: each kernel against its plain PyTorch twin on the card
+   (K1, K2; K3, K4 and K5 over uint8/uint16 codes, T up to 300; dedup);
+4. the float main path at full width: a 64 x 2048 x 2048 FakeDataSet stack
    (PSF sigma 1.4, 1% masked, one injected object) searched by
    ``StackSearch(..., -1).search_all`` over a 41 x 41 KBMODV1Search grid,
    then a sigma-G search over a 256-row band. The object must be the best
    result of both, every kernel must have launched, no twin may have run;
-5. each kernel's time at the main path's shapes beside its twin's, its
-   bound and (K1) cuDNN's grouped convolution, as one JSON line;
-6. as the last line, {"ok": true, "device": {...}}.
+5. the quantized main path on the same stack: ``StackSearch(..., 1)`` over
+   the full frame (K5), its sigma-G band (K5 at K = 32), ``StackSearch(...,
+   2)`` over the band (K3) and the uint8 band over a sparse 66-candidate
+   list (K4). Each search is driven with the counts at 0 and read after: it
+   must find the object through its kernel, with no twin run;
+6. each kernel's time at the main path's shapes beside its twin's, its
+   bound and (K1) cuDNN's grouped convolution, as one JSON line (K5 at both
+   of its main-path shapes: the full frame at K = 8 and the sigma-G band at
+   K = 32, each held against the twin); and K5
+   through the dispatcher (dedup + K5 + expansion) at the JAX package's
+   ``midscale_kernel`` shapes (T = 64, 2048 x 2048, C = 33,153, K = 8);
+7. as the last line, {"ok": true, "device": {...}}.
 
 Imports nothing of the JAX package.
 """
@@ -31,10 +41,16 @@ import numpy as np
 import torch
 
 # NVIDIA H100 SXM data sheet: HBM3 rate and float32 rate outside the tensor
-# cores. The bound of a kernel is the larger of bytes / rate and ops / rate.
+# cores; int32 from the Hopper white paper's 64 INT32 lanes per SM (132 SMs
+# at the 1980 MHz boost clock). The bound of a kernel is the larger of
+# bytes / rate and ops / rate.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
 K1_TOL = 1e-5  # rtol and atol of K1 against its twin (same op order: expect 0)
+SOURCES = ["psi_phi_conv", "search_topk", "search_topk_encoded", "search_topk_grouped"]
+# em of the JAX package's midscale_kernel benchmark (bench.py:176-178).
+MIDSCALE_EM = np.array([-6.0, 12.0 / 254, 0.1, 4.0 / 254], dtype=np.float32)
 
 
 def log(msg):
@@ -75,9 +91,11 @@ def clocks():
     return out.stdout.strip().splitlines()[0]
 
 
-def bound(nbytes, nops):
+def bound(nbytes, nops, int_ops=0):
+    """Least milliseconds for ``nbytes`` of traffic, ``nops`` float32 and
+    ``int_ops`` int32 operations, and which of the two bounds it."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / FP32_OPS_PER_S * 1e3
+    t_ops = (nops / FP32_OPS_PER_S + int_ops / INT32_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -114,17 +132,17 @@ def check_k1(dev):
     return worst
 
 
-def _assert_k2_equal(tag, got, ref):
+def _assert_k2_equal(tag, got, ref, kernel="K2"):
     """Indices equal; lh equal to one float32 ulp (both round the same way,
     so bit equality is expected)."""
     (g_lh, g_idx), (r_lh, r_idx) = got, ref
     if not torch.equal(g_idx, r_idx):
         n = int((g_idx != r_idx).sum())
-        raise AssertionError(f"K2 {tag}: {n} indices differ from the twin")
+        raise AssertionError(f"{kernel} {tag}: {n} indices differ from the twin")
     ulp = torch.abs(torch.nextafter(r_lh, torch.full_like(r_lh, float("inf"))) - r_lh)
     diff = (g_lh.double() - r_lh.double()).abs()
     if bool((diff > ulp.double()).any()):
-        raise AssertionError(f"K2 {tag}: lh differs from the twin by more than 1 ulp")
+        raise AssertionError(f"{kernel} {tag}: lh differs from the twin by more than 1 ulp")
     return float(diff.max()), int((diff > 0).sum())
 
 
@@ -206,35 +224,192 @@ def check_k2(dev):
     return worst
 
 
+def _code_stack(rng, T, H, W, bits, zeros=0.05):
+    dtype = np.uint8 if bits == 8 else np.uint16
+    psi = rng.integers(1, 1 << bits, (T, H, W)).astype(dtype)
+    phi = rng.integers(1, 1 << bits, (T, H, W)).astype(dtype)
+    psi[rng.uniform(size=psi.shape) < zeros] = 0
+    phi[rng.uniform(size=phi.shape) < zeros] = 0
+    return psi, phi
+
+
+def _planes(psi, phi, em, dev):
+    """EncodedPlanes whose code planes are views into one code-pair tensor,
+    as a PsiPhiArray holds them."""
+    from kbmod_tpu_torch.ops.psi_phi import code_pair_views, interleave_code_pairs
+    from kbmod_tpu_torch.ops.search import EncodedPlanes
+
+    pairs = interleave_code_pairs(torch.as_tensor(psi, device=dev), torch.as_tensor(phi, device=dev))
+    return EncodedPlanes(*code_pair_views(pairs, psi.shape[2]), em, pairs)
+
+
+# (kernel, code bits, T, H, W, C): K3 on uint16 and on uint8 past K4's T
+# limit, K4, K5 at the main path's T and past the 16-bit field limit.
+ENCODED_CONFIGS = [
+    ("K3", 16, 12, 300, 257, 97),
+    ("K3", 8, 260, 70, 83, 20),
+    ("K4", 8, 12, 300, 257, 97),
+    ("K5", 8, 64, 150, 257, 97),
+    ("K5", 8, 260, 70, 83, 20),
+    ("K5", 8, 300, 70, 83, 20),
+]
+
+
+def check_encoded(dev):
+    """K3, K4 and K5 against the encoded twin over K2's cases (window,
+    gates, padding candidates, duplicated candidates for exact ties) at
+    K = 1, 8 and 32; then dedup + expansion against the twin without
+    dedup. Returns the largest |kernel - twin| lh per kernel."""
+    from kbmod_tpu_torch.ops import search_encoded_kernel as ek
+    from kbmod_tpu_torch.ops.search import trajectory_offsets
+    from kbmod_tpu_torch.ops.search_encoded import search_topk_encoded
+    from kbmod_tpu_torch.ops.search_plan import _plan_groups
+
+    wrappers = {"K3": ek.search_encoded, "K4": ek.search_paired, "K5": ek.search_grouped}
+    worst = {k: 0.0 for k in wrappers}
+    for kernel, bits, T, H, W, C in ENCODED_CONFIGS:
+        rng = np.random.default_rng(T + bits)
+        psi, phi = _code_stack(rng, T, H, W, bits)
+        em = MIDSCALE_EM if bits == 8 else np.array([-6.0, 12.0 / 65534, 0.1, 4.0 / 65534], np.float32)
+        planes = _planes(psi, phi, em, dev)
+        times = np.sort(rng.uniform(0, 3.0, T))
+        times[0] = 0.0
+        vxs = rng.uniform(-20, 20, C).astype(np.float32)
+        vys = rng.uniform(-4, 4, C).astype(np.float32)
+        # Duplicated candidates: exact lh ties, where the lower index must win.
+        vxs[C - 4 :] = vxs[3]
+        vys[C - 4 :] = vys[3]
+        dxs, dys = trajectory_offsets(vxs, vys, times)
+        full = dict(x_min=0, x_max=W, y_min=0, y_max=H)
+        cases = [
+            ("full", full, {}),
+            ("reduced", dict(x_min=20, x_max=W - 30, y_min=11, y_max=H - 20), {}),
+            ("extended", dict(x_min=-13, x_max=W + 9, y_min=-7, y_max=H + 11), {}),
+            ("no-obs-gate", full, dict(gate_min_obs=False)),
+            ("min-obs", full, dict(min_obs=float(T // 2))),
+            ("min-lh", full, dict(gate_min_lh=True, min_lh=1.5, min_obs=float(T // 3))),
+            ("padding", full, dict(pad=7)),
+        ]
+        long_t = T > 64
+        for tag, bounds, opt in cases:
+            for K in ((1, 8, 32) if tag == "full" or not long_t else (8,)):
+                opt_k = dict(opt)
+                min_obs = opt_k.pop("min_obs", 3.0)
+                min_lh = opt_k.pop("min_lh", 0.0)
+                pad = opt_k.pop("pad", 0)
+                dx, dy, cand_valid = dxs, dys, None
+                if pad:
+                    dx = np.concatenate([dxs, dxs[:pad] + 1])
+                    dy = np.concatenate([dys, dys[:pad] - 1])
+                    cand_valid = torch.tensor([True] * C + [False] * pad, device=dev)
+                kw = dict(k_results=K, cand_valid=cand_valid, **bounds, **opt_k)
+                dx_t, dy_t = torch.as_tensor(dx, device=dev), torch.as_tensor(dy, device=dev)
+                extra = dict(plan=_plan_groups(dy, 8, 8)) if kernel == "K5" else {}
+                got = wrappers[kernel](planes, dx_t, dy_t, min_obs, min_lh, **kw, **extra)
+                ref = ek.search_topk_encoded_shift(planes.psi_codes, planes.phi_codes, dx_t, dy_t,
+                                                   min_obs, min_lh, em, **kw)
+                torch.cuda.synchronize()
+                err, nonzero = _assert_k2_equal(f"u{bits} T={T} {tag} K={K}", got, ref, kernel)
+                worst[kernel] = max(worst[kernel], err)
+                if tag == "full" and K == 32:
+                    # Candidate 3 and its duplicates tie exactly: where several
+                    # sit in one pixel's list, they appear in index order.
+                    dup = [3] + list(range(C - 4, C))
+                    idx = got[1].cpu().numpy()
+                    for i, j in zip(*np.nonzero(np.isin(idx, dup).sum(axis=0) > 1)):
+                        col = [v for v in idx[:, i, j] if v in dup]
+                        if col != sorted(col):
+                            raise AssertionError(f"{kernel} tie order at ({i},{j}): {col}")
+                log(f"{kernel} check u{bits} T={T:3d} {tag:12s} K={K:2d}: ok "
+                    f"(indices equal, max |dlh| {err:.3g}, {nonzero} slots differ)")
+
+    # Dedup: slow candidates share offset sequences; dedup + K5/K4 +
+    # expansion must equal the twin over every candidate.
+    rng = np.random.default_rng(5)
+    T, H, W = 12, 120, 140
+    psi, phi = _code_stack(rng, T, H, W, 8)
+    planes = _planes(psi, phi, MIDSCALE_EM, dev)
+    g = np.linspace(-1.5, 1.5, 13, dtype=np.float32)
+    vxs, vys = (a.ravel() for a in np.meshgrid(g, g))
+    dxs, dys = trajectory_offsets(vxs, vys, np.linspace(0.0, 2.0, T))
+    for K in (1, 8, 32):
+        kw = dict(x_min=-5, x_max=W + 3, y_min=0, y_max=H, k_results=K)
+        got = search_topk_encoded(planes, dxs, dys, 3.0, 0.0, **kw)
+        route = search_topk_encoded.last_route
+        ref = ek.search_topk_encoded_shift(planes.psi_codes, planes.phi_codes, dxs, dys, 3.0, 0.0,
+                                           MIDSCALE_EM, **kw)
+        torch.cuda.synchronize()
+        if not route.startswith("dedup+"):
+            raise AssertionError(f"dedup check: route {route} did not dedup")
+        err, nonzero = _assert_k2_equal(f"dedup K={K}", got, ref, "dedup")
+        log(f"dedup check ({route}, {len(vxs)} candidates) K={K:2d}: ok (indices equal, max |dlh| {err:.3g})")
+    return worst
+
+
 # ----------------------------------------------------------------------
 # Main path at full width
 # ----------------------------------------------------------------------
 
-def main_path(seed, T=64, size=2048, band=256):
-    from kbmod_tpu_torch.fake_data.fake_data_creator import FakeDataSet, create_fake_times
+def _kernels():
+    """The kernel wrappers, whose ``launches`` count their kernels, and the
+    plain twins, whose ``calls`` count theirs."""
+    from kbmod_tpu_torch.ops import search_encoded_kernel as ek
     from kbmod_tpu_torch.ops.conv_kernel import psi_phi_conv, psi_phi_conv_plain
     from kbmod_tpu_torch.ops.search_kernel import search_topk, search_topk_shift
-    from kbmod_tpu_torch.search import StackSearch, Trajectory
+
+    kernels = {"psi_phi_conv": psi_phi_conv, "search_topk": search_topk, "search_encoded": ek.search_encoded,
+               "search_paired": ek.search_paired, "search_grouped": ek.search_grouped}
+    twins = {"psi_phi_conv_plain": psi_phi_conv_plain, "search_topk_shift": search_topk_shift,
+             "search_topk_encoded_shift": ek.search_topk_encoded_shift}
+    return kernels, twins
+
+
+def reset_counts():
+    kernels, twins = _kernels()
+    for fn in kernels.values():
+        fn.launches = 0
+    for fn in twins.values():
+        fn.calls = 0
+
+
+def read_counts():
+    kernels, twins = _kernels()
+    return ({k: fn.launches for k, fn in kernels.items()}, {k: fn.calls for k, fn in twins.items()})
+
+
+def _check_best(tag, b, obj, min_obs):
+    if (b.x, b.y) != (obj.x, obj.y) or abs(b.vx - obj.vx) > 1e-4 or abs(b.vy - obj.vy) > 1e-4:
+        raise AssertionError(f"{tag}: best result {b} is not the injected object {obj}")
+    if not (np.isfinite(b.lh) and np.isfinite(b.flux) and b.obs_count >= min_obs):
+        raise AssertionError(f"{tag}: best result {b} is not finite with obs >= {min_obs}")
+
+
+def make_main_stack(seed, T=64, size=2048):
+    """The main paths' 64 x 2048 x 2048 FakeDataSet stack with one object
+    on a grid point of the 41 x 41 KBMODV1Search grid."""
+    from kbmod_tpu_torch.fake_data.fake_data_creator import FakeDataSet, create_fake_times
+    from kbmod_tpu_torch.search import Trajectory
     from kbmod_tpu_torch.trajectory_generator import KBMODV1Search
 
-    H = W = size
     t0 = time.perf_counter()
     times = create_fake_times(T, t0=57130.2, obs_per_day=4, intra_night_gap=0.01, inter_night_gap=1)
-    ds = FakeDataSet(W, H, times, psf_val=1.4, mask_fraction=0.01, use_seed=seed)
-    grid = KBMODV1Search(41, 5.0, 45.0, 41, -0.5, 0.5)
-    cands = list(grid)
+    ds = FakeDataSet(size, size, times, psf_val=1.4, mask_fraction=0.01, use_seed=seed)
+    cands = list(KBMODV1Search(41, 5.0, 45.0, 41, -0.5, 0.5))
     obj_c = 25 * 41 + 20  # angle step 25, speed step 20 of the grid
     obj = Trajectory(x=size * 3 // 10, y=size // 2, vx=cands[obj_c].vx, vy=cands[obj_c].vy, flux=150.0)
     ds.insert_object(obj)
     stack = ds.stack_py
-    log(f"main path: fake stack {T}x{H}x{W}, PSF {stack.psfs[0].shape}, "
-        f"{len(cands)} candidates, object {obj} (made in {time.perf_counter() - t0:.2f} s)")
+    log(f"main stack: fake {T}x{size}x{size}, PSF {stack.psfs[0].shape}, {len(cands)} candidates, "
+        f"object {obj} (made in {time.perf_counter() - t0:.2f} s)")
+    return stack, obj, cands, obj_c
 
-    for fn in (psi_phi_conv, search_topk):
-        fn.launches = 0
-    for fn in (psi_phi_conv_plain, search_topk_shift):
-        fn.calls = 0
 
+def main_path(stack, obj, cands, band=256):
+    """The float path: full frame, then the sigma-G band (K1, K2)."""
+    from kbmod_tpu_torch.search import StackSearch
+
+    T, H, W = len(stack.sci), *np.asarray(stack.sci[0]).shape
+    reset_counts()
     wall0 = time.perf_counter()
     search = StackSearch(stack.sci, stack.var, stack.psfs, stack.zeroed_times, -1)
     search.set_results_per_pixel(8)
@@ -253,29 +428,104 @@ def main_path(seed, T=64, size=2048, band=256):
     best_g = search.get_results(0, 1)[0]
     torch.cuda.synchronize()
     wall = time.perf_counter() - wall0
+    launches, twin_calls = read_counts()
 
-    launches = {"psi_phi_conv": psi_phi_conv.launches, "search_topk": search_topk.launches}
-    twin_calls = {"psi_phi_conv_plain": psi_phi_conv_plain.calls, "search_topk_shift": search_topk_shift.calls}
-    log(f"main path full frame: {n_full} results, best {best}")
-    log(f"main path sigma-G band y=[{y0}, {y0 + band}) at K=32: best {best_g}")
+    log(f"float path full frame: {n_full} results, best {best}")
+    log(f"float path sigma-G band y=[{y0}, {y0 + band}) at K=32: best {best_g}")
     evals = H * W * len(cands)
-    log(f"main path stage walls (ms): psi/phi build {full_t['psi_phi_ms']:.1f}, "
+    log(f"float path stage walls (ms): psi/phi build {full_t['psi_phi_ms']:.1f}, "
         f"search (K2) {full_t['search_ms']:.1f}, assembly {full_t['assemble_ms']:.1f}; "
         f"band search {band_t['search_ms']:.1f}, band assembly {band_t['assemble_ms']:.1f}; "
         f"{evals / (full_t['search_ms'] / 1e3):.4g} evals/s over the search stage; "
         f"whole path {wall:.2f} s")
-    log(f"main path launches {launches}, twin calls {twin_calls}")
+    log(f"float path launches {launches}, twin calls {twin_calls}")
 
-    for tag, b in (("full frame", best), ("sigma-G band", best_g)):
-        if (b.x, b.y) != (obj.x, obj.y) or abs(b.vx - obj.vx) > 1e-4 or abs(b.vy - obj.vy) > 1e-4:
-            raise AssertionError(f"{tag}: best result {b} is not the injected object {obj}")
-        if not (np.isfinite(b.lh) and np.isfinite(b.flux) and b.obs_count >= T // 2):
-            raise AssertionError(f"{tag}: best result {b} is not finite with obs >= T / 2")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel of the main path never launched: {launches}")
+    for tag, b in (("float full frame", best), ("float sigma-G band", best_g)):
+        _check_best(tag, b, obj, T // 2)
+    if min(launches["psi_phi_conv"], launches["search_topk"]) <= 0:
+        raise AssertionError(f"a kernel of the float path never launched: {launches}")
     if max(twin_calls.values()) != 0:
-        raise AssertionError(f"a plain twin ran on the main path: {twin_calls}")
-    return stack, search, cands, launches
+        raise AssertionError(f"a plain twin ran on the float path: {twin_calls}")
+    return search, launches
+
+
+def quantized_path(stack, obj, cands, obj_c, band=256):
+    """The quantized path on the same stack: four searches, each driven
+    with the counts at 0 and read after, each through its kernel."""
+    from kbmod_tpu_torch.ops.search_encoded import search_topk_encoded
+    from kbmod_tpu_torch.search import StackSearch
+
+    T, H, W = len(stack.sci), *np.asarray(stack.sci[0]).shape
+    y0 = obj.y - band // 2
+    sparse = [cands[i] for i in range(0, len(cands), 26)] + [cands[obj_c]]
+    total = {}
+    walls = {}
+    searches = {}
+
+    def drive(tag, kernel, fn):
+        reset_counts()
+        t0 = time.perf_counter()
+        s = fn()
+        torch.cuda.synchronize()
+        walls[tag] = (time.perf_counter() - t0) * 1e3
+        launches, twin_calls = read_counts()
+        route = search_topk_encoded.last_route
+        best = s.get_results(0, 1)[0]
+        log(f"quantized {tag}: route {route}, {s.get_number_total_results()} results, best {best}; "
+            f"stage walls (ms) {', '.join(f'{k} {v:.1f}' for k, v in s.timings.items())}; "
+            f"launches {launches}, twin calls {twin_calls}")
+        _check_best(f"quantized {tag}", best, obj, T // 2)
+        if launches[kernel] <= 0:
+            raise AssertionError(f"quantized {tag}: {kernel} never launched (route {route}): {launches}")
+        if max(twin_calls.values()) != 0:
+            raise AssertionError(f"quantized {tag}: a plain twin ran: {twin_calls}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        return s
+
+    def u8_full():
+        s = StackSearch(stack.sci, stack.var, stack.psfs, stack.zeroed_times, 1)
+        s.set_results_per_pixel(8)
+        s.set_min_obs(T // 2)
+        s.set_min_lh(10.0)
+        s.search_all(cands, True)
+        searches["u8"] = s
+        return s
+
+    def u8_band_sigmag():
+        s = searches["u8"]
+        s.set_start_bounds_y(y0, y0 + band)
+        s.enable_gpu_sigmag_filter([0.25, 0.75], 0.7413, 10.0)
+        s.search_all(cands, True)
+        return s
+
+    def u16_band():
+        s = StackSearch(stack.sci, stack.var, stack.psfs, stack.zeroed_times, 2)
+        s.set_results_per_pixel(8)
+        s.set_min_obs(T // 2)
+        s.set_min_lh(10.0)
+        s.set_start_bounds_y(y0, y0 + band)
+        s.search_all(cands, True)
+        searches["u16"] = s
+        return s
+
+    def u8_band_sparse():
+        s = searches["u8"]
+        s.disable_gpu_sigmag_filter()
+        s.search_all(sparse, True)
+        return s
+
+    drive("u8 full frame (K5)", "search_grouped", u8_full)
+    walls_full = dict(searches["u8"].timings)
+    drive(f"u8 sigma-G band y=[{y0}, {y0 + band}) K=32 (K5)", "search_grouped", u8_band_sigmag)
+    drive(f"u16 band y=[{y0}, {y0 + band}) (K3)", "search_encoded", u16_band)
+    drive(f"u8 band, sparse {len(sparse)} candidates (K4)", "search_paired", u8_band_sparse)
+    evals = H * W * len(cands)
+    log(f"quantized path: u8 full-frame search stage {walls_full['search_ms']:.1f} ms = "
+        f"{evals / (walls_full['search_ms'] / 1e3):.4g} evals/s; drive walls (ms) "
+        f"{', '.join(f'{k}: {v:.1f}' for k, v in walls.items())}")
+    log(f"quantized path launches (all four searches) {total}")
+    return searches, sparse, total
 
 
 # ----------------------------------------------------------------------
@@ -370,6 +620,127 @@ def time_k2(search, cands, dev):
                 evals_per_s=H * W * C / (ms / 1e3))
 
 
+def _default_survey_grid(C, n_vel_default=257):
+    """A copy of the JAX package's ``default_survey_grid`` (bench.py:133-143):
+    257 speeds x 129 angles about the ecliptic, in px per time unit."""
+    n_vel = n_vel_default if C == 257 * 129 else max(1, int(np.sqrt(C)))
+    n_ang = C // n_vel + (1 if C % n_vel else 0)
+    vel = np.linspace(92.0, 526.0, n_vel) / 86.0
+    ang = np.linspace(-np.pi / 15, np.pi / 15, n_ang)
+    vv, aa = np.meshgrid(vel, ang)
+    vxs = (np.cos(aa) * vv).reshape(-1)[:C].astype(np.float32)
+    vys = (np.sin(aa) * vv).reshape(-1)[:C].astype(np.float32)
+    return vxs, vys
+
+
+def _both_valid(planes):
+    from kbmod_tpu_torch.ops.psi_phi import _codes_as_int
+
+    return ((_codes_as_int(planes.psi_codes) > 0) & (_codes_as_int(planes.phi_codes) > 0)).to(torch.uint8)
+
+
+def _encoded_bound(planes, dx_t, dy_t, bounds, K):
+    """Bound of one encoded search: the codes read once (2 or 4 bytes a
+    pixel and time), the offsets, the maps written once; per valid
+    in-window sample three int32 adds (psi code, phi code, count), or 1.5
+    where the sums fit 16 bits (uint8 with T * 255 <= 65535), since then one
+    add sums two columns as the two 16-bit fields of a register, as K4
+    does; and per (pixel, candidate) the decode (6 float ops), a sqrt, a
+    divide and K compares."""
+    T, H, W = planes.shape
+    SH, SW = bounds["y_max"] - bounds["y_min"], bounds["x_max"] - bounds["x_min"]
+    C = dx_t.shape[0]
+    n_samples = _valid_samples(_both_valid(planes), dx_t + bounds["x_min"], dy_t + bounds["y_min"], SH, SW)
+    code_bytes = 2 * planes.psi_codes.element_size()
+    nbytes = code_bytes * T * H * W + 8 * C * T + 8 * K * SH * SW
+    adds = 1.5 if planes.psi_codes.dtype == torch.uint8 and T * 255 <= 65535 else 3
+    return bound(nbytes, (8 + K) * SH * SW * C, adds * n_samples), n_samples
+
+
+def time_encoded(kernel, planes, times, cands, bounds, K, min_obs, min_lh, dev):
+    """One encoded kernel at a main-path search's shapes and settings
+    (gate on min_lh, as those searches run): median of 3 launches by CUDA
+    events, the twin once, the bound."""
+    from kbmod_tpu_torch.ops import search_encoded_kernel as ek
+    from kbmod_tpu_torch.ops.search import trajectory_offsets
+    from kbmod_tpu_torch.ops.search_encoded import encoded_route
+
+    T = planes.shape[0]
+    vxs = np.array([c.vx for c in cands], np.float32)
+    vys = np.array([c.vy for c in cands], np.float32)
+    dxs, dys = trajectory_offsets(vxs, vys, times)
+    dx_t, dy_t = torch.as_tensor(dxs, device=dev), torch.as_tensor(dys, device=dev)
+    wrapper = {"K3": ek.search_encoded, "K4": ek.search_paired, "K5": ek.search_grouped}[kernel]
+    kw = dict(k_results=K, gate_min_lh=True, **bounds)
+    extra = dict(plan=encoded_route(planes.psi_codes.dtype, T, dys)[1]) if kernel == "K5" else {}
+    run = lambda: wrapper(planes, dx_t, dy_t, min_obs, min_lh, **kw, **extra)  # noqa: E731
+    got = run()
+    ms = event_ms(run, 3)
+    log(f"{kernel} timed; clocks (sm, max sm, power, temperature): {clocks()}")
+    t0 = time.perf_counter()
+    ref = ek.search_topk_encoded_shift(planes.psi_codes, planes.phi_codes, dx_t, dy_t, min_obs, min_lh,
+                                       planes.em, **kw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err, _ = _assert_k2_equal("main-path shapes", got, ref, kernel)
+    (bound_ms, bound_by), n_samples = _encoded_bound(planes, dx_t, dy_t, bounds, K)
+    SH, SW = bounds["y_max"] - bounds["y_min"], bounds["x_max"] - bounds["x_min"]
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms, bound_by=bound_by, err=err,
+                shape=f"u{8 * planes.psi_codes.element_size()} T={T} {SH}x{SW} window, C={len(cands)}, "
+                      f"K={K}, {n_samples} valid samples",
+                evals_per_s=SH * SW * len(cands) / (ms / 1e3))
+
+
+def time_midscale(dev, T=64, size=2048, C=257 * 129, K=8):
+    """K5 through the dispatcher (dedup + K5 + expansion) at the JAX
+    package's midscale_kernel shapes: random uint8 codes, times linspace(0,
+    4, 64), the default survey grid, K = 8, min_obs 10. A 256-row band when
+    one search over the full frame takes over 60 s."""
+    from kbmod_tpu_torch.ops import search_encoded_kernel as ek
+    from kbmod_tpu_torch.ops.search import trajectory_offsets
+    from kbmod_tpu_torch.ops.search_encoded import search_topk_encoded
+    from kbmod_tpu_torch.ops.search_plan import _dedup_plan_cached
+
+    rng = np.random.default_rng(42)
+    psi = rng.integers(0, 256, (T, size, size), dtype=np.uint8)
+    phi = rng.integers(1, 256, (T, size, size), dtype=np.uint8)
+    planes = _planes(psi, phi, MIDSCALE_EM, dev)
+    del psi, phi
+    vxs, vys = _default_survey_grid(C)
+    dxs, dys = trajectory_offsets(vxs, vys, np.linspace(0.0, 4.0, T))
+    kw = dict(x_min=0, x_max=size, y_min=0, y_max=size, k_results=K)
+    ek.search_grouped.launches = 0
+    t0 = time.perf_counter()
+    lh, idx = search_topk_encoded(planes, dxs, dys, 10.0, 0.0, **kw)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    cut = None
+    if first_s > 60:
+        kw["y_max"] = 256
+        cut = f"256-row band (one full-frame search took {first_s:.1f} s)"
+    route = search_topk_encoded.last_route
+    run = lambda: search_topk_encoded(planes, dxs, dys, 10.0, 0.0, **kw)  # noqa: E731
+    ms = event_ms(run, 3)
+    log(f"midscale timed; clocks (sm, max sm, power, temperature): {clocks()}")
+    lh, idx = run()
+    filled = idx >= 0
+    if not (bool(torch.isfinite(lh[filled]).all()) and int(idx.max()) < C and bool(filled[0].any())):
+        raise AssertionError("midscale: top-K maps are not finite, in range and filled")
+    dedup = _dedup_plan_cached(dxs, dys, 1.1)
+    u_dxs, u_dys = (dxs, dys) if dedup is None else dedup[:2]
+    bounds = {k: kw[k] for k in ("x_min", "x_max", "y_min", "y_max")}
+    (bound_ms, bound_by), n_samples = _encoded_bound(
+        planes, torch.as_tensor(u_dxs, device=dev), torch.as_tensor(u_dys, device=dev), bounds, K)
+    SH = kw["y_max"] - kw["y_min"]
+    evals = SH * size * C
+    log(f"midscale (dedup + K5 + expansion): route {route}, {len(u_dxs)} offset classes of {C} candidates, "
+        f"{ms:.3f} ms per search over {SH}x{size} (first search {first_s:.2f} s, "
+        f"{ek.search_grouped.launches} K5 launches in all), {evals / (ms / 1e3):.4g} evals/s, "
+        f"bound {bound_ms:.3f} ms ({bound_by}, {n_samples} valid samples of the classes)"
+        + (f"; cut to a {cut}" if cut else ""))
+    return dict(ms=ms, evals_per_s=evals / (ms / 1e3), bound_ms=bound_ms, route=route, cut=cut)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--checks-only", action="store_true", help="build and check the kernels, then stop")
@@ -388,36 +759,66 @@ def main():
     log(f"clocks at start (sm, max sm, power, temperature): {clocks()}")
 
     t0 = time.perf_counter()
-    logs = _build.build(["psi_phi_conv", "search_topk"])
+    logs = _build.build(SOURCES)
     for name, text in logs.items():
         log(f"nvcc {name}.cu:\n{text.strip() or '(already built)'}")
     log(f"kernel build: {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
     err_k1 = check_k1(dev)
     err_k2 = check_k2(dev)
+    err_enc = check_encoded(dev)
+    log(f"kernel checks: {time.perf_counter() - t0:.1f} s")
     if args.checks_only:
         log(card)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                                  "count": torch.cuda.device_count()}}))
         return 0
 
-    stack, search, cands, launches = main_path(args.seed)
+    stack, obj, cands, obj_c = make_main_stack(args.seed)
+    search, launches_f = main_path(stack, obj, cands)
+    searches, sparse, launches_q = quantized_path(stack, obj, cands, obj_c)
     k1 = time_k1(stack, dev)
     k2 = time_k2(search, cands, dev)
-    for name, r in (("K1 psi_phi_conv", k1), ("K2 search_topk", k2)):
+    del search
+    T, H, W = len(stack.sci), *np.asarray(stack.sci[0]).shape
+    y0 = obj.y - 128
+    full = dict(x_min=0, x_max=W, y_min=0, y_max=H)
+    band = dict(x_min=0, x_max=W, y_min=y0, y_max=y0 + 256)
+    u8 = searches["u8"]._eval_planes()[0]
+    u16 = searches["u16"]._eval_planes()[0]
+    times = stack.zeroed_times
+    k5 = time_encoded("K5", u8, times, cands, full, 8, float(T // 2), 10.0, dev)
+    # The sigma-G band search's K5 launch: K = 32, the same gates.
+    k5_band = time_encoded("K5", u8, times, cands, band, 32, float(T // 2), 10.0, dev)
+    k3 = time_encoded("K3", u16, times, cands, band, 8, float(T // 2), 10.0, dev)
+    k4 = time_encoded("K4", u8, times, sparse, band, 8, float(T // 2), 10.0, dev)
+    del searches, u8, u16
+    torch.cuda.empty_cache()
+    mid = time_midscale(dev)
+    for name, r in (("K1 psi_phi_conv", k1), ("K2 search_topk", k2), ("K3 search_encoded", k3),
+                    ("K4 search_paired", k4), ("K5 search_grouped", k5), ("K5 search_grouped, band", k5_band)):
         log(f"{name} at {r['shape']}: {r['ms']:.3f} ms, twin {r['plain_ms']:.1f} ms, "
-            f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}), library {r['library_ms']}")
-    log(f"K2 kernel rate: {k2['evals_per_s']:.4g} evals/s")
+            f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}), library {r['library_ms']}"
+            + (f", {r['evals_per_s']:.4g} evals/s" if "evals_per_s" in r else ""))
+    log(f"K5 midscale through the dispatcher: {mid['ms']:.3f} ms, {mid['evals_per_s']:.4g} evals/s")
 
+    def entry(name, src, replaces, launches, err, r):
+        return dict(name=name, route="cuda", source=f"kbmod_tpu_torch/csrc/{src}",
+                    replaces=f"kbmod_tpu/ops/{replaces}", launches=launches, max_abs_err=max(err, r["err"]),
+                    ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                    library_ms=r["library_ms"])
+
+    launches = {k: launches_f[k] + launches_q[k] for k in launches_f}
     entries = [
-        dict(name="psi_phi_conv", route="cuda", source="kbmod_tpu_torch/csrc/psi_phi_conv.cu",
-             replaces="kbmod_tpu/ops/conv_pallas.py:32", launches=launches["psi_phi_conv"],
-             max_abs_err=max(err_k1, k1["err"]), ms=k1["ms"], plain_ms=k1["plain_ms"],
-             bound_ms=k1["bound_ms"], bound_by=k1["bound_by"], library_ms=k1["library_ms"]),
-        dict(name="search_topk", route="cuda", source="kbmod_tpu_torch/csrc/search_topk.cu",
-             replaces="kbmod_tpu/ops/search_pallas.py:182", launches=launches["search_topk"],
-             max_abs_err=max(err_k2, k2["err"]), ms=k2["ms"], plain_ms=k2["plain_ms"],
-             bound_ms=k2["bound_ms"], bound_by=k2["bound_by"], library_ms=None),
+        entry("psi_phi_conv", "psi_phi_conv.cu", "conv_pallas.py:32", launches["psi_phi_conv"], err_k1, k1),
+        entry("search_topk", "search_topk.cu", "search_pallas.py:182", launches["search_topk"], err_k2, k2),
+        entry("search_encoded", "search_topk_encoded.cu", "search_pallas.py:505", launches["search_encoded"],
+              err_enc["K3"], k3),
+        entry("search_paired", "search_topk_encoded.cu", "search_pallas.py:916", launches["search_paired"],
+              err_enc["K4"], k4),
+        entry("search_grouped", "search_topk_grouped.cu", "search_pallas.py:1493", launches["search_grouped"],
+              max(err_enc["K5"], k5_band["err"]), k5),
     ]
     print(json.dumps({"kernels": entries}))
     log(card)

@@ -2,8 +2,8 @@
 
 Each source in ``kbmod_tpu_torch/csrc`` has a plain C interface and is
 compiled on first use into ``kbmod_tpu_torch/_build/lib<name>-<hash>.so``,
-keyed by a hash of the source and the flags, so an edited source rebuilds
-and an unchanged one loads at once. Nothing here runs at import time: the
+keyed by a hash of the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source rebuilds and an unchanged one loads at once. Nothing here runs at import time: the
 CPU tests import every module on hosts that have no nvcc.
 """
 
@@ -45,6 +45,7 @@ def nvcc_path():
 def library_path(name):
     """Where the library for ``csrc/<name>.cu`` lives once built."""
     src = (SRC_DIR / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(SRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

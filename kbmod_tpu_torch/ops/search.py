@@ -1,22 +1,27 @@
-"""The float core search: offsets, winner re-scoring, sigma-G and assembly.
+"""The core search: offsets, winner re-scoring, sigma-G and assembly.
 
-Port of the JAX package's ops/search.py, float path. Starting pixels are
-integers, so ``floor(x + v*t + 0.5) == x + floor(v*t + 0.5)``: each
-(candidate, time) pair shifts the whole image by one integer offset, which
-the host precomputes in float64 (the reference's kernels.cu:33-35). The
-top-K search itself is kernel K2 (ops/search_kernel.py). The gathers that
-re-score the winners run as plain PyTorch on the search's device; the
-sigma-G clipping and the pixel-major assembly run in numpy on the host, as
-in the JAX package.
+Port of the JAX package's ops/search.py. Starting pixels are integers, so
+``floor(x + v*t + 0.5) == x + floor(v*t + 0.5)``: each (candidate, time)
+pair shifts the whole image by one integer offset, which the host
+precomputes in float64 (the reference's kernels.cu:33-35). The top-K search
+itself is kernel K2 (ops/search_kernel.py) on float planes, or the encoded
+dispatcher (ops/search_encoded.py: kernels K3, K4 and K5) on quantized code
+planes. The gathers that re-score the winners run as plain PyTorch on the
+search's device, over the code planes for a quantized stack; the sigma-G
+clipping and the pixel-major assembly run in numpy on the host, as in the
+JAX package.
 """
 
 import logging
 import time
 from functools import partial
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from kbmod_tpu_torch.ops.psi_phi import _f32, _storage
+from kbmod_tpu_torch.ops.search_encoded import search_topk_encoded
 from kbmod_tpu_torch.ops.search_kernel import search_topk
 
 logger = logging.getLogger("kbmod.search")
@@ -61,26 +66,74 @@ def predict_index(pos0, vel0, time):
 # re-scoring of search winners)
 # ----------------------------------------------------------------------
 
+class EncodedPlanes(NamedTuple):
+    """Quantized psi/phi code planes and their decode vector, accepted by
+    the search and the gathers in place of decoded float planes (port of
+    the JAX package's ops/search.py:119-153).
+
+    Gathering the codes and decoding each sample keeps the evaluation at
+    the codes' footprint: the decoded float planes, about 4.5x (uint8) the
+    codes, are never built. ``em`` is [psi_min, psi_scale, phi_min,
+    phi_scale] as float32; a value decodes to (code - 1) * scale + min, code
+    0 being masked. ``pairs`` is the interleaved (T, H, Wp, 2) layout the
+    search kernels read (``PsiPhiArray.code_pairs``), of which the code
+    planes may be views; None builds it when a kernel needs it.
+    """
+
+    psi_codes: torch.Tensor  # (T, H, W) uint8 or uint16
+    phi_codes: torch.Tensor  # (T, H, W) same dtype
+    em: np.ndarray           # (4,) float32
+    pairs: torch.Tensor = None
+
+    @property
+    def shape(self):
+        return tuple(self.psi_codes.shape)
+
+    @property
+    def device(self):
+        return self.psi_codes.device
+
+
+def _gather_codes(codes, tt, py, px):
+    """int32 codes of a (T, H, W) code tensor at (tt, py, px), indexed
+    through its strides (the planes may be views into the code pairs)."""
+    g = _storage(codes)[tt, py, px].to(torch.int32)
+    return g & 0xFFFF if codes.dtype == torch.uint16 else g
+
+
 def _gather_curves(psi, phi, valid, xs, ys, dxs, dys):
     """Gather per-time psi/phi values along trajectories.
 
     psi, phi: (T, H, W) float32 zero-filled at masked; valid: (T, H, W)
-    uint8. xs, ys: (N,) int tensors of starting pixels; dxs, dys: (N, T)
+    uint8. Alternatively psi may be an :class:`EncodedPlanes` (phi and
+    valid are then ignored): the codes are gathered and decoded per sample,
+    with the JAX package's rules (ops/search.py:196-208): a sample is valid
+    where its psi code is non-zero, and its phi value is 0 where the phi
+    code is 0. xs, ys: (N,) int tensors of starting pixels; dxs, dys: (N, T)
     int tensors of offsets, all on psi's device.
 
     Returns psi_v, phi_v: (N, T) float32 (0 where invalid) and ok: (N, T)
     bool.
     """
     T, H, W = psi.shape
+    dev = psi.device
     px = xs[:, None].to(torch.int64) + dxs
     py = ys[:, None].to(torch.int64) + dys
     inb = (px >= 0) & (px < W) & (py >= 0) & (py < H)
     pxc = px.clamp(0, W - 1)
     pyc = py.clamp(0, H - 1)
-    tt = torch.arange(T, dtype=torch.int64, device=psi.device)[None, :]
+    tt = torch.arange(T, dtype=torch.int64, device=dev)[None, :]
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    if isinstance(psi, EncodedPlanes):
+        em = np.asarray(psi.em, dtype=np.float32)
+        pc = _gather_codes(psi.psi_codes, tt, pyc, pxc)
+        fc = _gather_codes(psi.phi_codes, tt, pyc, pxc)
+        ok = inb & (pc != 0)
+        psi_v = torch.where(ok, (pc.to(torch.float32) - 1.0) * _f32(em[1], dev) + _f32(em[0], dev), zero)
+        phi_v = torch.where(ok & (fc != 0), (fc.to(torch.float32) - 1.0) * _f32(em[3], dev) + _f32(em[2], dev), zero)
+        return psi_v, phi_v, ok
     flat_idx = (tt * H + pyc) * W + pxc
     ok = inb & (valid.reshape(-1)[flat_idx] > 0)
-    zero = torch.zeros((), dtype=torch.float32, device=psi.device)
     psi_v = torch.where(ok, psi.reshape(-1)[flat_idx], zero)
     phi_v = torch.where(ok, phi.reshape(-1)[flat_idx], zero)
     return psi_v, phi_v, ok
@@ -354,8 +407,10 @@ def core_search(
     """Run the full top-K search and assemble per-result statistics.
 
     psi, phi (T, H, W) float32 zero-filled, valid (T, H, W) uint8, all on
-    the search's device. ``gate_min_lh=None`` gates top-K insertion at min_lh
-    only in sigma-G mode (kernels.cu:318-320).
+    the search's device; or psi an :class:`EncodedPlanes` (phi and valid
+    None), which runs the encoded dispatcher (kernels K3-K5) and re-scores
+    the winners over the code planes. ``gate_min_lh=None`` gates top-K
+    insertion at min_lh only in sigma-G mode (kernels.cu:318-320).
 
     Returns a dict of numpy arrays (x, y, vx, vy, lh, flux, obs_count) laid
     out pixel-major with K entries per pixel (kernels.cu:286), empty slots
@@ -367,7 +422,8 @@ def core_search(
     candidate (:func:`exact_refine_pixels`). ``timings`` (a dict) receives
     the stage times "search_ms" and "assemble_ms".
     """
-    timer = _Timer(timings, psi.device)
+    dev = psi.device
+    timer = _Timer(timings, dev)
     SH, SW = y_max - y_min, x_max - x_min
     num_cand = len(vxs)
     k = int(results_per_pixel)
@@ -378,16 +434,21 @@ def core_search(
 
     dxs, dys = trajectory_offsets(vxs, vys, times)
     escalate = _SigmaGEscalation(do_sigmag, SIGMAG_POOL_FACTOR, k, num_cand)
-    has_masked = bool(torch.min(valid) == 0)
-    dxs_t = torch.as_tensor(dxs, device=psi.device)
-    dys_t = torch.as_tensor(dys, device=psi.device)
-
-    top_lh, top_idx = search_topk(
-        psi, phi, valid, dxs_t, dys_t, float(min_obs), float(min_lh),
+    dxs_t = torch.as_tensor(dxs, device=dev)
+    dys_t = torch.as_tensor(dys, device=dev)
+    bounds = dict(
         x_min=int(x_min), x_max=int(x_max), y_min=int(y_min), y_max=int(y_max),
         k_results=int(k_search), gate_min_obs=gate_min_obs, gate_min_lh=bool(gate_min_lh),
-        has_masked=has_masked,
     )
+    if isinstance(psi, EncodedPlanes):
+        # The quantized stack: the codes go straight through the encoded
+        # kernels, which need no validity plane (code 0 is masked).
+        top_lh, top_idx = search_topk_encoded(psi, dxs, dys, float(min_obs), float(min_lh), **bounds)
+    else:
+        has_masked = bool(torch.min(valid) == 0)
+        top_lh, top_idx = search_topk(
+            psi, phi, valid, dxs_t, dys_t, float(min_obs), float(min_lh), has_masked=has_masked, **bounds
+        )
     timer.lap("search_ms")
     refine_fn = None
     if escalate.enabled:

@@ -1,0 +1,207 @@
+"""Host plans for the encoded search: offset-class dedup and candidate
+grouping.
+
+Port of the JAX package's plan code (ops/search_pallas.py:1254-1387 and
+:2533-2651). The plans are numpy on the host, where the (C, T) offset tables
+are made; the expansion of deduplicated top-K maps back to candidates runs
+in PyTorch on the maps' device.
+
+- :func:`_dedup_plan` collapses candidates whose rounded offset sequences
+  are identical into offset classes, numbered by first occurrence, so each
+  class is searched once; :func:`_expand_topk_classes` expands the class
+  maps back, bit-exact, ties included.
+- :func:`_plan_groups` sorts candidates by their last-time row offset and
+  packs consecutive ones into groups of at most G whose per-time rows lie
+  within S of each other; :func:`_plan_groups_uniform` groups candidates
+  whose per-time rows are identical. Kernel K5 searches a group at a time.
+"""
+
+import hashlib
+
+import numpy as np
+import torch
+
+FLT_MAX = float(np.finfo(np.float32).max)
+
+_DEDUP_CACHE = {}
+_PLAN_CACHE = {}
+
+
+def _content_key(*arrays):
+    return tuple((hashlib.sha1(np.ascontiguousarray(a)).hexdigest(), a.shape, str(a.dtype)) for a in arrays)
+
+
+def _cache_put(cache, key, value, max_entries):
+    if len(cache) >= max_entries:
+        cache.pop(next(iter(cache)))
+    cache[key] = value
+    return value
+
+
+def _dedup_plan_cached(dxs_np, dys_np, min_factor, max_entries=8):
+    """Content-keyed cache around :func:`_dedup_plan`: repeated searches
+    over one grid plan once."""
+    key = _content_key(dxs_np, dys_np) + (float(min_factor),)
+    if key in _DEDUP_CACHE:
+        return _DEDUP_CACHE[key]
+    return _cache_put(_DEDUP_CACHE, key, _dedup_plan(dxs_np, dys_np, min_factor), max_entries)
+
+
+def _dedup_plan(dxs_np, dys_np, min_factor):
+    """Collapse candidates whose pixel-offset sequences are identical into
+    offset classes. Scoring depends on the offsets alone, so each class is
+    searched once and the maps expanded afterwards.
+
+    Returns ``None`` when C / n_classes < min_factor, else
+    ``(u_dxs, u_dys, members, counts)`` with classes ordered by FIRST
+    OCCURRENCE (so a tie ordered by class index is ordered by each class's
+    smallest candidate index); ``members`` is (n_classes, max_count) int32,
+    -1 padded, each row the class's candidate indices ascending.
+    """
+    C, T = dys_np.shape
+    dd = np.concatenate(
+        [dxs_np.astype(np.int32, copy=False), dys_np.astype(np.int32, copy=False)],
+        axis=1,
+    )
+    _, first_idx, inv = np.unique(dd, axis=0, return_index=True, return_inverse=True)
+    n = len(first_idx)
+    if n == C or C < min_factor * n:
+        return None
+    order = np.argsort(first_idx, kind="stable")
+    rank = np.empty(n, dtype=np.int64)
+    rank[order] = np.arange(n)
+    cls = rank[inv.reshape(-1)]  # per-candidate class id, first-occurrence order
+    counts = np.bincount(cls, minlength=n).astype(np.int32)
+    members = np.full((n, int(counts.max())), -1, dtype=np.int32)
+    by_cls = np.argsort(cls, kind="stable")  # class-major, index-ascending
+    starts = np.cumsum(counts) - counts
+    cols = np.arange(C) - starts[cls[by_cls]]
+    members[cls[by_cls], cols] = by_cls
+    reps = first_idx[order]
+    return (
+        np.ascontiguousarray(dxs_np[reps]),
+        np.ascontiguousarray(dys_np[reps]),
+        members,
+        counts,
+    )
+
+
+def _expand_topk_classes(top_lh, top_idx, members, row_band=None):
+    """Expand per-pixel top-K OFFSET-CLASS maps into top-K candidate maps
+    (the inverse of :func:`_dedup_plan`). Bit-exact, ties included.
+
+    Each class slot (lh, class) expands to the class's members, all with
+    its lh, in ascending index order; the merged per-pixel list is sorted by
+    (lh desc, index asc) and cut back to K. A candidate of a class outside
+    the K kept classes cannot belong to the top K: each kept class has a
+    member ahead of it (higher lh, or equal lh and a smaller index, by the
+    first-occurrence numbering). Likewise a class's (K+1)-th member trails
+    K of its own, so each class contributes at most K members.
+    """
+    K, SH, SW = top_lh.shape
+    dev = top_lh.device
+    n = members.shape[0]
+    Km = min(members.shape[1], K)
+    # Class -1 (an empty slot) indexes the sentinel last row: no members.
+    members_t = torch.as_tensor(
+        np.concatenate([members[:, :Km], np.full((1, Km), -1, np.int32)]), device=dev
+    ).to(torch.int64)
+    int_max = int(np.iinfo(np.int32).max)
+    # Bands of rows keep each dense (K*Km, rows*SW) intermediate near 2^24
+    # elements.
+    if row_band is None:
+        row_band = max(8, (1 << 24) // max(K * Km * SW, 1))
+    out_lh, out_idx = [], []
+    for y0 in range(0, SH, row_band):
+        rows = top_lh[:, y0 : y0 + row_band].shape[1]
+        lh = top_lh[:, y0 : y0 + row_band].reshape(K, 1, -1)
+        idx = top_idx[:, y0 : y0 + row_band].reshape(K, -1).to(torch.int64)
+        mem = members_t[torch.where(idx >= 0, idx, n)]  # (K, P, Km)
+        mem = mem.permute(0, 2, 1)  # (K, Km, P)
+        exp_lh = torch.where(mem >= 0, lh, -FLT_MAX).reshape(K * Km, -1)
+        key_idx = torch.where(mem >= 0, mem, int_max).reshape(K * Km, -1)
+        # (lh desc, index asc): sort by index, then stably by lh (-0.0 and
+        # +0.0 tie, as in the JAX package's two-key sort).
+        by_idx = torch.argsort(key_idx, dim=0, stable=True)
+        exp_lh = torch.gather(exp_lh, 0, by_idx)
+        key_idx = torch.gather(key_idx, 0, by_idx)
+        by_lh = torch.argsort(-exp_lh, dim=0, stable=True)[:K]
+        out_lh.append(torch.gather(exp_lh, 0, by_lh).reshape(K, rows, SW))
+        sel = torch.gather(key_idx, 0, by_lh)
+        out_idx.append(torch.where(sel == int_max, -1, sel).to(torch.int32).reshape(K, rows, SW))
+    return torch.cat(out_lh, dim=1), torch.cat(out_idx, dim=1)
+
+
+def _plan_groups(dys_np, G, S):
+    """Sort candidates by net row motion and pack consecutive candidates
+    into groups of <= G whose per-time row spread is <= S.
+
+    Returns ``(order, starts)``: ``order`` is the (C,) processing
+    permutation; ``starts`` the first slot of each group within it.
+    """
+    dys_np = np.asarray(dys_np)
+    C, T = dys_np.shape
+    key = dys_np[:, -1]
+    order = np.argsort(key, kind="stable").astype(np.int32)
+    d_last = key[order]
+    # Greedy pass on the last-time offsets: for linear trajectories the
+    # spread at any t is bounded by the last-time spread + 2 (floor
+    # jitter), so a last-time bound of S-2 guarantees S overall.
+    bound = max(int(S) - 2, 0)
+    starts = [0]
+    for i in range(1, C):
+        if i - starts[-1] >= G or d_last[i] - d_last[starts[-1]] > bound:
+            starts.append(i)
+    starts = np.asarray(starts, dtype=np.int64)
+    # Exact verification over every time step (arbitrary dys inputs need
+    # not be linear): split any violating group into singletons.
+    d = dys_np[order]
+    gmin = np.minimum.reduceat(d, starts, axis=0)
+    gmax = np.maximum.reduceat(d, starts, axis=0)
+    bad = (gmax - gmin).max(axis=1) > S
+    if bad.any():
+        ends = np.append(starts[1:], C)
+        new_starts = []
+        for gi in range(len(starts)):
+            if bad[gi]:
+                new_starts.extend(range(int(starts[gi]), int(ends[gi])))
+            else:
+                new_starts.append(int(starts[gi]))
+        starts = np.asarray(new_starts, dtype=np.int64)
+    return order, starts
+
+
+def _plan_groups_uniform(dys_np, G):
+    """Group candidates whose per-time row offsets are IDENTICAL (row
+    classes); groups never span two classes. Survey grids (velocity x angle
+    lattices) collapse to a few hundred row sequences, so nearly every group
+    is full, and a group's rows spread by 0.
+
+    Returns ``(order, starts)`` like :func:`_plan_groups`.
+    """
+    dys_np = np.ascontiguousarray(np.asarray(dys_np, dtype=np.int32))
+    C, T = dys_np.shape
+    view = dys_np.view([("", dys_np.dtype)] * T).reshape(C)
+    _, inv = np.unique(view, return_inverse=True)
+    # A stable sort keeps a class's candidates in ascending index order.
+    order = np.argsort(inv, kind="stable").astype(np.int32)
+    cls_sorted = inv[order]
+    cls_starts = np.flatnonzero(np.r_[True, cls_sorted[1:] != cls_sorted[:-1]])
+    cls_ends = np.append(cls_starts[1:], C)
+    starts = np.concatenate(
+        [np.arange(int(s), int(e), int(G)) for s, e in zip(cls_starts, cls_ends)]
+    )
+    return order, starts.astype(np.int64)
+
+
+def _plan_groups_cached(dys_np, G, S, max_entries=8, uniform=False):
+    """Content-keyed cache around :func:`_plan_groups` /
+    :func:`_plan_groups_uniform`: repeated searches over one grid pay the
+    O(C log C) sort and the spread check once."""
+    dys_np = np.ascontiguousarray(dys_np)
+    key = _content_key(dys_np) + (int(G), int(S), bool(uniform))
+    hit = _PLAN_CACHE.get(key)
+    if hit is None:
+        plan = _plan_groups_uniform(dys_np, G) if uniform else _plan_groups(dys_np, G, S)
+        hit = _cache_put(_PLAN_CACHE, key, plan, max_entries)
+    return hit

@@ -1,4 +1,4 @@
-"""StackSearch: the orchestrator for one shift-and-stack search (float path).
+"""StackSearch: the orchestrator for one shift-and-stack search.
 
 API-compatible with the reference's C++ StackSearch
 (src/kbmod/search/stack_search.{h,cpp}) and the JAX package's
@@ -7,8 +7,12 @@ times, configure thresholds and bounds, then ``search_all`` a candidate
 velocity list and read back filtered, likelihood-sorted results.
 
 The psi/phi planes are built and kept on ``device`` (CUDA by default) by
-kernel K1; the search runs kernel K2. Checkpointing, multi-device sharding,
-the exact sigma-G mode and the quantized encodings are not ported yet.
+kernel K1. A float stack (num_bytes -1 or 4) is searched by kernel K2; a
+quantized one (num_bytes 1 or 2) keeps uint8/uint16 code planes, is
+searched by kernels K3-K5 through the encoded dispatcher, and re-scores its
+winners by gathering codes, never building decoded float planes.
+Checkpointing, multi-device sharding and the exact sigma-G mode are not
+ported yet.
 """
 
 import logging
@@ -188,8 +192,17 @@ class StackSearch:
 
     # --- evaluation ---
 
-    def _decoded(self):
-        return self.psi_phi_array.decoded_psi_phi()
+    def _eval_planes(self):
+        """The planes the search and the gathers take, as a (psi, phi, valid)
+        triple: the float planes, or for a quantized stack an
+        ``EncodedPlanes`` over the code planes with phi and valid None (the
+        JAX package's search/stack_search.py:187-212). The code planes are
+        views into the array's interleaved code pairs, which the kernels
+        read."""
+        arr = self.psi_phi_array
+        if arr.meta.num_bytes in (1, 2):
+            return search_ops.EncodedPlanes(arr.psi, arr.phi, arr.encode_meta(), arr.code_pairs()), None, None
+        return arr.decoded_psi_phi()
 
     def evaluate_single_trajectory(self, trj, use_kernel=False):
         """Evaluate one trajectory in place (lh, flux, obs_count).
@@ -197,7 +210,7 @@ class StackSearch:
         ``use_kernel=True`` additionally applies the in-kernel sigma-G
         refinement when enabled (kernels.cu:213-241); ``False`` matches
         evaluate_trajectory_cpu (no sigma-G)."""
-        psi, phi, valid = self._decoded()
+        psi, phi, valid = self._eval_planes()
         psi_v, phi_v, ok, stats = search_ops._curves_and_stats(
             psi, phi, valid, self._zeroed_times, [trj.x], [trj.y], [trj.vx], [trj.vy]
         )
@@ -276,7 +289,7 @@ class StackSearch:
             gate_min_obs = False
             do_sigmag = False
 
-        psi, phi, valid = self._decoded()
+        psi, phi, valid = self._eval_planes()
         common = dict(
             min_obs=p.min_observations,
             min_lh=p.min_lh,
@@ -324,7 +337,7 @@ class StackSearch:
             ys = np.array([t.y for t in trajectories], dtype=np.int32)
             vxs = np.array([t.vx for t in trajectories], dtype=np.float32)
             vys = np.array([t.vy for t in trajectories], dtype=np.float32)
-        psi, phi, valid = self._decoded()
+        psi, phi, valid = self._eval_planes()
         psi_v, phi_v = search_ops.extract_psi_phi_curves(
             psi, phi, valid, self._zeroed_times, xs, ys, vxs, vys
         )

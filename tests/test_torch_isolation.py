@@ -1,7 +1,9 @@
-"""kbmod_tpu_torch stands alone: it imports and runs a CPU search with
-``jax`` and ``kbmod_tpu`` blocked, and an entry point left to its default
-device (CUDA) raises on a host without a card."""
+"""kbmod_tpu_torch stands alone: it imports and runs a CPU search (float
+and uint8) with ``jax`` and ``kbmod_tpu`` blocked, ``chip_smoke.py``
+imports neither, and an entry point left to its default device (CUDA)
+raises on a host without a card."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -32,9 +34,14 @@ _SCRIPT = textwrap.dedent(
     s.search_all(list(VelocityGridSearch(5, 1.0, 5.0, 5, -1.0, 3.0)), True)
     best = s.get_results(0, 1)[0]
     assert (best.x, best.y) == (9, 14), best
+    q = StackSearch(st.sci, st.var, st.psfs, st.zeroed_times, 1, device="cpu")
+    q.set_min_obs(4)
+    q.search_all(list(VelocityGridSearch(5, 1.0, 5.0, 5, -1.0, 3.0)), True)
+    best_q = q.get_results(0, 1)[0]
+    assert (best_q.x, best_q.y) == (9, 14), best_q
     assert not any(m == "jax" or m.startswith(("jax.", "kbmod_tpu.")) for m in sys.modules
                    if sys.modules[m] is not None)
-    print("OK", best)
+    print("OK", best, best_q)
     """
 )
 
@@ -46,6 +53,27 @@ def test_imports_and_searches_without_jax():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("OK")
+
+
+def _imported_modules(path):
+    """Every module an ``import`` or ``from ... import`` in the file names,
+    at any depth (functions included)."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module)
+    return names
+
+
+def test_chip_smoke_imports_no_jax():
+    names = _imported_modules(os.path.join(REPO_ROOT, "chip_smoke.py"))
+    assert any(n.startswith("kbmod_tpu_torch") for n in names)
+    bad = [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "kbmod_tpu")]
+    assert not bad, f"chip_smoke.py imports {bad}"
 
 
 def test_default_device_raises_without_cuda():

@@ -188,8 +188,8 @@ def test_api_checks_and_result_access(stack):
         s.set_results_per_pixel(0)
     with pytest.raises(RuntimeError):
         TStackSearch(stack.sci[:2], stack.var, stack.psfs, stack.zeroed_times, -1, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TStackSearch(stack.sci, stack.var, stack.psfs, stack.zeroed_times, 1, device="cpu")
+    with pytest.raises(RuntimeError, match="encoding size"):
+        TStackSearch(stack.sci, stack.var, stack.psfs, stack.zeroed_times, 3, device="cpu")
     with pytest.raises(RuntimeError):
         s.search_all([], True)
     s.enable_gpu_sigmag_filter([0.25, 0.75], 0.7413, 2.0)
