@@ -9,7 +9,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 1. the card's name and power limit (nvidia-smi);
 2. the nvcc build of every CUDA kernel, all sources compiled together;
 3. kernel checks: each kernel against its plain PyTorch twin on the card
-   (K1, K2; K3, K4 and K5 over uint8/uint16 codes, T up to 300; dedup);
+   (K1, K2; K3, K4 and K5 over uint8/uint16 codes, T up to 300; dedup;
+   K6 in modes A, B and C), and each redesigned kernel's ptxas registers
+   and spills;
 4. the float main path at full width: a 64 x 2048 x 2048 FakeDataSet stack
    (PSF sigma 1.4, 1% masked, one injected object) searched by
    ``StackSearch(..., -1).search_all`` over a 41 x 41 KBMODV1Search grid,
@@ -20,19 +22,24 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    2)`` over the band (K3) and the uint8 band over a sparse 66-candidate
    list (K4). Each search is driven with the counts at 0 and read after: it
    must find the object through its kernel, with no twin run;
-6. each kernel's time at the main path's shapes beside its twin's, its
-   bound and (K1) cuDNN's grouped convolution, as one JSON line (K5 at both
-   of its main-path shapes: the full frame at K = 8 and the sigma-G band at
-   K = 32, each held against the twin); and K5
-   through the dispatcher (dedup + K5 + expansion) at the JAX package's
+6. K6's own path, the micro-benchmark script
+   (``kbmod_tpu_torch.scripts.exactrow_microbench``), driven with the
+   counts at 0 and read after;
+7. each kernel's time at the main path's shapes beside its twin's, its
+   bound and (K1) cuDNN's grouped convolution, as one JSON line (K2 and K5
+   at both of their main-path shapes: the full frame at K = 8 and the
+   sigma-G band at K = 32, each held against the twin); K5 through the
+   dispatcher (dedup + K5 + expansion) at the JAX package's
    ``midscale_kernel`` shapes (T = 64, 2048 x 2048, C = 33,153, K = 8);
-7. as the last line, {"ok": true, "device": {...}}.
+   and K6's three modes at the script's defaults and at NG = 3,015;
+8. as the last line, {"ok": true, "device": {...}}.
 
 Imports nothing of the JAX package.
 """
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -48,7 +55,12 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 K1_TOL = 1e-5  # rtol and atol of K1 against its twin (same op order: expect 0)
-SOURCES = ["psi_phi_conv", "search_topk", "search_topk_encoded", "search_topk_grouped"]
+SOURCES = ["psi_phi_conv", "search_topk", "search_topk_encoded", "search_topk_grouped", "exactrow_microbench"]
+# Sources whose kernels this slice redesigned or added: their ptxas
+# register and spill lines are printed on their own.
+REPORTED = ("search_topk", "search_topk_grouped", "exactrow_microbench")
+# The group count of the midscale search's uniform plan: K6 is timed there too.
+K6_MIDSCALE_NG = 3015
 # em of the JAX package's midscale_kernel benchmark (bench.py:176-178).
 MIDSCALE_EM = np.array([-6.0, 12.0 / 254, 0.1, 4.0 / 254], dtype=np.float32)
 
@@ -89,6 +101,24 @@ def clocks():
         capture_output=True, text=True, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(log):
+    """(kernel, registers, spill stores, spill loads) for every kernel in an
+    nvcc -Xptxas -v log."""
+    rows, name, spills = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spills = m.group(1), (0, 0)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append((name, int(m.group(1)), *spills))
+            name = None
+    return rows
 
 
 def bound(nbytes, nops, int_ops=0):
@@ -221,6 +251,28 @@ def check_k2(dev):
                     if col != sorted(col):
                         raise AssertionError(f"K2 tie order at ({i},{j}): {col}")
             log(f"K2 check {tag:12s} K={K:2d}: ok (indices equal, max |dlh| {err:.3g}, {nonzero} slots differ)")
+    # The grouped kernel's own cases: K = 64; a column spread that stages
+    # one slab per member; candidate 3 copied 12 times, so its exact ties
+    # span two groups; window origins outside the image with the full
+    # candidate set at K = 64.
+    vd, vyd = vxs.copy(), vys.copy()
+    vd[70:82], vyd[70:82] = vxs[3], vys[3]
+    grouped_cases = [
+        ("k64", (vxs, vys), full, 64),
+        ("wide-spread", (vxs * 12, vys * 0.2), full, 8),
+        ("ties-across", (vd, vyd), full, 32),
+        ("extended-k64", (vxs, vys), dict(x_min=-40, x_max=W - 20, y_min=-33, y_max=H + 5), 64),
+    ]
+    for tag, (vx, vy), bounds, K in grouped_cases:
+        dx, dy = (torch.as_tensor(a, device=dev) for a in trajectory_offsets(vx, vy, times))
+        args = (d["psi"], d["phi"], d["valid"], dx, dy, 3.0, 0.0)
+        kw = dict(k_results=K, **bounds)
+        got = search_topk(*args, **kw)
+        ref = search_topk_shift(*args, **kw)
+        torch.cuda.synchronize()
+        err, nonzero = _assert_k2_equal(f"{tag} K={K}", got, ref)
+        worst = max(worst, err)
+        log(f"K2 check {tag:12s} K={K:2d}: ok (indices equal, max |dlh| {err:.3g}, {nonzero} slots differ)")
     return worst
 
 
@@ -244,12 +296,15 @@ def _planes(psi, phi, em, dev):
 
 
 # (kernel, code bits, T, H, W, C): K3 on uint16 and on uint8 past K4's T
-# limit, K4, K5 at the main path's T and past the 16-bit field limit.
+# limit, K4, K5 at the main path's T, at the 16-bit field limit (257) and
+# past it.
 ENCODED_CONFIGS = [
     ("K3", 16, 12, 300, 257, 97),
     ("K3", 8, 260, 70, 83, 20),
     ("K4", 8, 12, 300, 257, 97),
     ("K5", 8, 64, 150, 257, 97),
+    ("K5", 8, 257, 70, 83, 20),
+    ("K5", 8, 258, 70, 83, 20),
     ("K5", 8, 260, 70, 83, 20),
     ("K5", 8, 300, 70, 83, 20),
 ]
@@ -292,7 +347,7 @@ def check_encoded(dev):
         ]
         long_t = T > 64
         for tag, bounds, opt in cases:
-            for K in ((1, 8, 32) if tag == "full" or not long_t else (8,)):
+            for K in ((1, 8, 32, 64) if tag == "full" or not long_t else (8,)):
                 opt_k = dict(opt)
                 min_obs = opt_k.pop("min_obs", 3.0)
                 min_lh = opt_k.pop("min_lh", 0.0)
@@ -346,6 +401,87 @@ def check_encoded(dev):
     return worst
 
 
+def _k6_wide_table(rng, ng, T, th, rows, W4):
+    """A K6 table with wrap-around shifts: any row roll, any window base,
+    lane rolls past W4."""
+    SL = th + 8
+    return np.concatenate(
+        [rng.integers(0, SL, (ng, T)), rng.integers(0, rows - SL + 1, (ng, T)), rng.integers(0, 3 * W4, (ng, T))],
+        axis=1,
+    ).astype(np.int32)
+
+
+def check_k6(dev):
+    """K6 in every mode against its twin (exact int32 equality) at the JAX
+    script's defaults: its own draw and a table of wrap-around shifts."""
+    from kbmod_tpu_torch.ops.exactrow_kernel import MODES, exactrow_accumulate, exactrow_accumulate_plain
+    from kbmod_tpu_torch.scripts.exactrow_microbench import make_inputs
+
+    tbl, buf = make_inputs(device=dev)
+    ng, th = tbl.shape[0], 32
+    wide = torch.as_tensor(_k6_wide_table(np.random.default_rng(6), ng, tbl.shape[1] // 3, th, *buf.shape),
+                           device=dev)
+    for tag, tb in (("script draw", tbl), ("wrap-around shifts", wide)):
+        ref = exactrow_accumulate_plain(tb, buf, "A", 8, th)
+        for mode in MODES:
+            got = exactrow_accumulate(tb, buf, mode, 8, th)
+            torch.cuda.synchronize()
+            if not torch.equal(got, ref):
+                raise AssertionError(f"K6 mode {mode} {tag}: {int((got != ref).sum())} words differ from the twin")
+            log(f"K6 check mode {mode} {tag}: ok (bit-equal)")
+    return 0.0
+
+
+def k6_path():
+    """K6's own path: the micro-benchmark script, run as a user runs it, with
+    the counts at 0 just before and read just after."""
+    from kbmod_tpu_torch.scripts import exactrow_microbench as mb
+
+    reset_counts()
+    mb.main([])
+    launches, twin_calls = read_counts()
+    log(f"K6 script launches {launches}, twin calls {twin_calls}")
+    if launches["exactrow_accumulate"] <= 0 or max(twin_calls.values()) != 0:
+        raise AssertionError(f"K6 script did not run through its kernel alone: {launches}, {twin_calls}")
+    return launches["exactrow_accumulate"]
+
+
+def time_k6(dev):
+    """K6's modes at the JAX script's defaults (NG = 64) and at NG = 3,015,
+    the group count of midscale's uniform plan, each against the twin. The
+    bound counts 3 int32 adds per (slot, word) against the bytes of buf,
+    tbl and out."""
+    from kbmod_tpu_torch.ops import _build, exactrow_kernel
+    from kbmod_tpu_torch.ops.exactrow_kernel import MODES, exactrow_accumulate, exactrow_accumulate_plain
+    from kbmod_tpu_torch.scripts.exactrow_microbench import make_inputs, time_mode
+
+    res = {}
+    for ng in (64, K6_MIDSCALE_NG):
+        tbl, buf = make_inputs(ng=ng, device=dev)
+        th, T = 32, tbl.shape[1] // 3
+        t0 = time.perf_counter()
+        ref = exactrow_accumulate_plain(tbl, buf, "A", 8, th)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        words = ng * T * 8 * th * buf.shape[1]
+        bound_ms, bound_by = bound(4 * (tbl.numel() + buf.numel() + th * buf.shape[1]), 0, 3 * words)
+        for mode in MODES:
+            got = exactrow_accumulate(tbl, buf, mode, 8, th)
+            torch.cuda.synchronize()
+            if not torch.equal(got, ref):
+                raise AssertionError(f"K6 mode {mode} NG={ng}: differs from the twin")
+            ms = time_mode(tbl, buf, mode, 8, th, reps=20 if ng == 64 else 5)
+            res[(ng, mode)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, err=0.0,
+                                   library_ms=None)
+            slots = ng * T * 8
+            log(f"K6 mode {mode} NG={ng}: {ms:.4f} ms, {2 * words / (ms / 1e3) / 1e11:.3f}e11 eval-steps/s, "
+                f"{ms * 1e6 / slots:.2f} ns/cand-slot, bound {bound_ms:.4f} ms ({bound_by}), twin {plain_ms:.1f} ms")
+        log(f"K6 timed at NG={ng}; clocks (sm, max sm, power, temperature): {clocks()}")
+    lib = _build.load("exactrow_microbench", exactrow_kernel._SIGNATURES)
+    log("K6 blocks per SM: " + ", ".join(f"{m} {lib.kb_exactrow_blocks_per_sm(ord(m), 512)}" for m in MODES))
+    return res
+
+
 # ----------------------------------------------------------------------
 # Main path at full width
 # ----------------------------------------------------------------------
@@ -357,10 +493,14 @@ def _kernels():
     from kbmod_tpu_torch.ops.conv_kernel import psi_phi_conv, psi_phi_conv_plain
     from kbmod_tpu_torch.ops.search_kernel import search_topk, search_topk_shift
 
+    from kbmod_tpu_torch.ops.exactrow_kernel import exactrow_accumulate, exactrow_accumulate_plain
+
     kernels = {"psi_phi_conv": psi_phi_conv, "search_topk": search_topk, "search_encoded": ek.search_encoded,
-               "search_paired": ek.search_paired, "search_grouped": ek.search_grouped}
+               "search_paired": ek.search_paired, "search_grouped": ek.search_grouped,
+               "exactrow_accumulate": exactrow_accumulate}
     twins = {"psi_phi_conv_plain": psi_phi_conv_plain, "search_topk_shift": search_topk_shift,
-             "search_topk_encoded_shift": ek.search_topk_encoded_shift}
+             "search_topk_encoded_shift": ek.search_topk_encoded_shift,
+             "exactrow_accumulate_plain": exactrow_accumulate_plain}
     return kernels, twins
 
 
@@ -586,38 +726,59 @@ def _valid_samples(valid, ox, oy, SH, SW):
     return int(s.sum())
 
 
-def time_k2(search, cands, dev):
+def _staged_traffic(lay, px_bytes, SH, SW, tile_rows, tile_cols, ms):
+    """The bytes a grouped kernel copies into shared memory in one search,
+    from its window layout (every block stages every (group, t) step), and
+    the rate that is over the kernel's time."""
+    blocks = -(-SH // tile_rows) * -(-SW // tile_cols)
+    staged = int((lay[..., 0].astype(np.int64) * lay[..., 1] * lay[..., 2]).sum()) * px_bytes * blocks
+    slabs = float((lay[..., 0] > 1).mean())
+    return (f"{staged / 1e12:.3f} TB staged ({staged / (ms / 1e3) / 1e12:.2f} TB/s over the kernel's time; "
+            f"{slabs:.1%} of (group, t) steps stage one slab per member)")
+
+
+def time_k2(search, cands, dev, bounds=None, K=8):
+    """K2 at a float search's shapes and settings (min_obs T/2, min_lh 10
+    with the insertion gated on it, as the full-frame search with
+    results_per_pixel 8 and the sigma-G band search with its pool of 4 x 8
+    run): median of 3 launches by CUDA events, the twin once, the bound.
+    ``bounds`` defaults to the full frame."""
     from kbmod_tpu_torch.ops.search import trajectory_offsets
-    from kbmod_tpu_torch.ops.search_kernel import search_topk, search_topk_shift
+    from kbmod_tpu_torch.ops.search_kernel import _lib as _k2_lib
+    from kbmod_tpu_torch.ops.search_kernel import k2_staging, search_topk, search_topk_shift
 
     psi, phi, valid = search.psi_phi_array.decoded_psi_phi()
     T, H, W = psi.shape
+    bounds = bounds or dict(x_min=0, x_max=W, y_min=0, y_max=H)
+    SH, SW = bounds["y_max"] - bounds["y_min"], bounds["x_max"] - bounds["x_min"]
     vxs = np.array([c.vx for c in cands], np.float32)
     vys = np.array([c.vy for c in cands], np.float32)
     dxs, dys = trajectory_offsets(vxs, vys, search.zeroed_times)
     dxs, dys = torch.as_tensor(dxs, device=dev), torch.as_tensor(dys, device=dev)
-    C, K = len(cands), 8
-    # The full-frame search's settings: results_per_pixel 8, min_obs T/2,
-    # min_lh 10 with the insertion gated on it.
-    kw = dict(x_min=0, x_max=W, y_min=0, y_max=H, k_results=K, gate_min_lh=True)
+    C = len(cands)
+    kw = dict(k_results=K, gate_min_lh=True, **bounds)
     args = (psi, phi, valid, dxs, dys, float(T // 2), 10.0)
     got = search_topk(*args, **kw)
     ms = event_ms(lambda: search_topk(*args, **kw), 3)
-    log(f"K2 timed; clocks (sm, max sm, power, temperature): {clocks()}")
+    log(f"K2 timed ({SH}x{SW}, K={K}); clocks (sm, max sm, power, temperature): {clocks()}")
     t0 = time.perf_counter()
     ref = search_topk_shift(*args, **kw)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    err, _ = _assert_k2_equal("main-path shapes", got, ref)
-    n_samples = _valid_samples(valid, dxs, dys, H, W)
-    nbytes = (4 + 4 + 1) * T * H * W + 8 * C * T + 8 * K * H * W
+    err, _ = _assert_k2_equal(f"main-path shapes {SH}x{SW} K={K}", got, ref)
+    st = k2_staging(dxs.cpu().numpy(), dys.cpu().numpy(), bounds["x_min"], bounds["y_min"])
+    log(f"K2 ({SH}x{SW}, K={K}): {len(st['starts'])} groups, {st['smem_bytes']} bytes of shared memory, "
+        f"{_k2_lib().kb_search_topk_blocks_per_sm(K, st['smem_bytes'])} blocks per SM; "
+        + _staged_traffic(st["lay"], 9, SH, SW, 4, 256, ms))
+    n_samples = _valid_samples(valid, dxs + bounds["x_min"], dys + bounds["y_min"], SH, SW)
+    nbytes = (4 + 4 + 1) * T * H * W + 8 * C * T + 8 * K * SH * SW
     # 3 adds per valid sample; a sqrt, a divide and K compares per
     # (pixel, candidate).
-    nops = 3 * n_samples + (2 + K) * H * W * C
+    nops = 3 * n_samples + (2 + K) * SH * SW * C
     bound_ms, bound_by = bound(nbytes, nops)
     return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
-                err=err, shape=f"T={T} {H}x{W} window, C={C}, K={K}, {n_samples} valid samples",
-                evals_per_s=H * W * C / (ms / 1e3))
+                err=err, shape=f"T={T} {SH}x{SW} window, C={C}, K={K}, {n_samples} valid samples",
+                evals_per_s=SH * SW * C / (ms / 1e3))
 
 
 def _default_survey_grid(C, n_vel_default=257):
@@ -683,6 +844,15 @@ def time_encoded(kernel, planes, times, cands, bounds, K, min_obs, min_lh, dev):
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     err, _ = _assert_k2_equal("main-path shapes", got, ref, kernel)
+    if kernel == "K5":
+        from kbmod_tpu_torch.ops import _build
+
+        st = ek.k5_staging(dxs, dys, bounds["x_min"], bounds["y_min"], extra["plan"])
+        lib = _build.load("search_topk_grouped", ek._GRP_SIGNATURES)
+        SH, SW = bounds["y_max"] - bounds["y_min"], bounds["x_max"] - bounds["x_min"]
+        log(f"K5 (K={K}): {len(extra['plan'][1])} groups, {st['smem_bytes']} bytes of shared memory, "
+            f"{lib.kb_search_grouped_blocks_per_sm(K, st['smem_bytes'])} blocks per SM; "
+            + _staged_traffic(st["lay"], 2, SH, SW, 4, 256, ms))
     (bound_ms, bound_by), n_samples = _encoded_bound(planes, dx_t, dy_t, bounds, K)
     SH, SW = bounds["y_max"] - bounds["y_min"], bounds["x_max"] - bounds["x_min"]
     return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms, bound_by=bound_by, err=err,
@@ -763,11 +933,15 @@ def main():
     for name, text in logs.items():
         log(f"nvcc {name}.cu:\n{text.strip() or '(already built)'}")
     log(f"kernel build: {time.perf_counter() - t0:.1f} s")
+    for name in REPORTED:
+        for fn, regs, st, ld in ptxas_summary(logs[name]):
+            log(f"ptxas {name}.cu {fn}: {regs} registers, {st} bytes spill stores, {ld} bytes spill loads")
 
     t0 = time.perf_counter()
     err_k1 = check_k1(dev)
     err_k2 = check_k2(dev)
     err_enc = check_encoded(dev)
+    err_k6 = check_k6(dev)
     log(f"kernel checks: {time.perf_counter() - t0:.1f} s")
     if args.checks_only:
         log(card)
@@ -778,13 +952,16 @@ def main():
     stack, obj, cands, obj_c = make_main_stack(args.seed)
     search, launches_f = main_path(stack, obj, cands)
     searches, sparse, launches_q = quantized_path(stack, obj, cands, obj_c)
+    launches_k6 = k6_path()
     k1 = time_k1(stack, dev)
-    k2 = time_k2(search, cands, dev)
-    del search
     T, H, W = len(stack.sci), *np.asarray(stack.sci[0]).shape
     y0 = obj.y - 128
     full = dict(x_min=0, x_max=W, y_min=0, y_max=H)
     band = dict(x_min=0, x_max=W, y_min=y0, y_max=y0 + 256)
+    k2 = time_k2(search, cands, dev)
+    # The sigma-G band search's K2 launch: a pool of 4 x 8, the same gates.
+    k2_band = time_k2(search, cands, dev, band, 32)
+    del search
     u8 = searches["u8"]._eval_planes()[0]
     u16 = searches["u16"]._eval_planes()[0]
     times = stack.zeroed_times
@@ -796,8 +973,10 @@ def main():
     del searches, u8, u16
     torch.cuda.empty_cache()
     mid = time_midscale(dev)
-    for name, r in (("K1 psi_phi_conv", k1), ("K2 search_topk", k2), ("K3 search_encoded", k3),
-                    ("K4 search_paired", k4), ("K5 search_grouped", k5), ("K5 search_grouped, band", k5_band)):
+    k6 = time_k6(dev)
+    for name, r in (("K1 psi_phi_conv", k1), ("K2 search_topk", k2), ("K2 search_topk, band", k2_band),
+                    ("K3 search_encoded", k3), ("K4 search_paired", k4), ("K5 search_grouped", k5),
+                    ("K5 search_grouped, band", k5_band)):
         log(f"{name} at {r['shape']}: {r['ms']:.3f} ms, twin {r['plain_ms']:.1f} ms, "
             f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}), library {r['library_ms']}"
             + (f", {r['evals_per_s']:.4g} evals/s" if "evals_per_s" in r else ""))
@@ -805,20 +984,26 @@ def main():
 
     def entry(name, src, replaces, launches, err, r):
         return dict(name=name, route="cuda", source=f"kbmod_tpu_torch/csrc/{src}",
-                    replaces=f"kbmod_tpu/ops/{replaces}", launches=launches, max_abs_err=max(err, r["err"]),
+                    replaces=replaces if replaces.startswith("scripts/") else f"kbmod_tpu/ops/{replaces}",
+                    launches=launches, max_abs_err=max(err, r["err"]),
                     ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                     library_ms=r["library_ms"])
 
     launches = {k: launches_f[k] + launches_q[k] for k in launches_f}
     entries = [
         entry("psi_phi_conv", "psi_phi_conv.cu", "conv_pallas.py:32", launches["psi_phi_conv"], err_k1, k1),
-        entry("search_topk", "search_topk.cu", "search_pallas.py:182", launches["search_topk"], err_k2, k2),
+        entry("search_topk", "search_topk.cu", "search_pallas.py:182", launches["search_topk"],
+              max(err_k2, k2_band["err"]), k2),
         entry("search_encoded", "search_topk_encoded.cu", "search_pallas.py:505", launches["search_encoded"],
               err_enc["K3"], k3),
         entry("search_paired", "search_topk_encoded.cu", "search_pallas.py:916", launches["search_paired"],
               err_enc["K4"], k4),
         entry("search_grouped", "search_topk_grouped.cu", "search_pallas.py:1493", launches["search_grouped"],
               max(err_enc["K5"], k5_band["err"]), k5),
+        # K6 at midscale's group count, in mode C (K5's inner loop); its
+        # launches are those of its own path, the micro-benchmark script.
+        entry("exactrow_accumulate", "exactrow_microbench.cu", "scripts/exactrow_microbench.py:49", launches_k6,
+              err_k6, k6[(K6_MIDSCALE_NG, "C")]),
     ]
     print(json.dumps({"kernels": entries}))
     log(card)

@@ -28,13 +28,10 @@ from kbmod_tpu_torch.ops.search_encoded_kernel import (
     search_grouped,
     search_paired,
 )
-from kbmod_tpu_torch.ops.search_plan import _dedup_plan_cached, _expand_topk_classes, _plan_groups_cached
+from kbmod_tpu_torch.ops.search_plan import _dedup_plan_cached, _expand_topk_classes, grouped_plan
 
 # Dedup applies when the candidates outnumber their offset classes by this.
 DEDUP_MIN_FACTOR = 1.1
-# Group size and row spread of the K5 plan.
-GROUP_G = 8
-GROUP_S = 8
 
 
 def encoded_route(dtype, T, dys):
@@ -42,19 +39,11 @@ def encoded_route(dtype, T, dys):
     (C, T) row offsets ``dys``, before dedup: ("grouped", plan),
     ("paired", None) or ("encoded", None).
 
-    K5 takes a plan whose slots (groups x G) stay within max(1.6 C, C +
-    4 G), i.e. whose groups are mostly full. A grouped search takes the uniform plan (members share every row, so a
-    group's window is no taller than the tile) when it costs at most
-    max(1.25x, +2 G) the spread plan's slots, the JAX package's rule
-    (ops/search_pallas.py:2113-2117) at its G = 8."""
+    K5 takes the grouping plan of ``search_plan.grouped_plan`` when it
+    fills (its groups are mostly full)."""
     if dtype == torch.uint8:
-        dys = np.asarray(dys, dtype=np.int32)
-        plan = _plan_groups_cached(dys, GROUP_G, GROUP_S)
-        C, slots = dys.shape[0], len(plan[1]) * GROUP_G
-        if slots <= max(1.6 * C, C + 4 * GROUP_G):
-            uniform = _plan_groups_cached(dys, GROUP_G, 0, uniform=True)
-            if len(uniform[1]) * GROUP_G <= max(1.25 * slots, slots + 2 * GROUP_G):
-                plan = uniform
+        plan, fills = grouped_plan(dys)
+        if fills:
             return "grouped", plan
         if T <= PAIRED_MAX_T:
             return "paired", None

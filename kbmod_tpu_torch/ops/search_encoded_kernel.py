@@ -33,10 +33,22 @@ import torch
 
 from kbmod_tpu_torch.ops import _build
 from kbmod_tpu_torch.ops.psi_phi import _codes_as_int, _f32, interleave_code_pairs
-from kbmod_tpu_torch.ops.search_kernel import FLT_MAX, MAX_K, _stage_candidates
+from kbmod_tpu_torch.ops.search_kernel import FLT_MAX, MAX_K
+from kbmod_tpu_torch.ops.search_plan import GROUP_G, staging_header_bytes, window_layout_cached
 
 # uint8 code sums fit a 16-bit field while T * 255 <= 65535.
 PAIRED_MAX_T = 257
+# Dynamic shared memory K3/K4 stage offsets in without opting in to more.
+_STAGE_BYTES = 48 * 1024
+
+
+def _stage_candidates(C, T, batch):
+    """Candidates K3/K4 stage in shared memory per batch: as many as 48 KB
+    holds, a multiple of the kernel's candidate batch, at least one batch."""
+    per = 8 * T + 1
+    cs = max(batch, (_STAGE_BYTES // per) // batch * batch)
+    return min(cs, -(-C // batch) * batch)
+
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ENC_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _I, _I, _P, _P, _P]
@@ -47,15 +59,39 @@ _ENC_SIGNATURES = {
     "kb_search_encoded_cand_batch": ([], ctypes.c_int),
 }
 _GRP_SIGNATURES = {
-    "kb_search_grouped": (
-        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _I, _I,
-         _P, _P, _P],
-        ctypes.c_int,
-    ),
-    "kb_search_grouped_smem_bytes": ([_I, _I, _I], ctypes.c_size_t),
+    "kb_search_grouped": ([_P] * 8 + [_I] * 8 + [_F] * 6 + [_I, _I, _P, _P, _P], ctypes.c_int),
+    "kb_search_grouped_smem_bytes": ([_I, _I], ctypes.c_size_t),
     "kb_search_grouped_tile": ([_I], ctypes.c_int),
     "kb_search_grouped_max_group": ([], ctypes.c_int),
+    "kb_search_grouped_blocks_per_sm": ([_I, _I], ctypes.c_int),
 }
+# K5's block tile (rows, columns), staging chunk in code pairs and the
+# steps its 16-bit fields hold before a flush (csrc/search_topk_grouped.cu).
+K5_TILE_ROWS, K5_TILE_COLS, K5_CHUNK = 4, 256, 8
+_K5_FLUSH = 257
+
+
+def k5_staging(dxs, dys, x_min, y_min, plan):
+    """K5's host layout for (C, T) offsets and a grouping plan ``(order,
+    starts)``: the window layout of its staged code pairs (one extra column
+    on each window's right, which an odd column shift reads) and the shared
+    memory it needs. Returns a dict with ``lay``, ``off``, ``buf_elems`` and
+    ``smem_bytes`` (header, two buffers of 2 bytes a pair, and the 32-bit
+    field sums past 257 steps). Raises ValueError when that exceeds a
+    block's shared memory."""
+    order, starts = (np.asarray(a, dtype=np.int64) for a in plan)
+    dxs = np.asarray(dxs, dtype=np.int64)[order] + int(x_min)
+    dys = np.asarray(dys, dtype=np.int64)[order] + int(y_min)
+    T = dxs.shape[1]
+    lay, off, buf_elems = window_layout_cached(
+        dxs, dys, starts, tile_rows=K5_TILE_ROWS, tile_cols=K5_TILE_COLS, chunk=K5_CHUNK, extra=1)
+    # 32-bit field sums past 257 steps: G members x (psi, phi) x 2 columns
+    # a thread, 512 threads, 4 bytes.
+    wide = GROUP_G * 4 * 512 * 4 if T > _K5_FLUSH else 0
+    smem = staging_header_bytes(T) + 2 * 2 * buf_elems + wide
+    if smem > _build.MAX_SMEM_BYTES:
+        raise ValueError(f"search_grouped: T={T} windows need {smem} bytes of shared memory")
+    return dict(lay=lay, off=off, buf_elems=buf_elems, smem_bytes=smem)
 
 
 def search_topk_encoded_shift(
@@ -248,9 +284,10 @@ def search_grouped(planes, dxs, dys, min_obs, min_lh, *, plan, **kw):
 
     ``plan`` is ``(order, starts)`` from ``ops/search_plan.py``: group g
     holds the candidates ``order[starts[g]:starts[g + 1]]`` (at most 8),
-    taken in that order. Other arguments as :func:`search_encoded`. Exact
-    ties still rank by ascending index, so the result is the twin's, which
-    the CPU runs."""
+    taken in that order. Other arguments as :func:`search_encoded`; the code
+    pairs' padding columns must be zero, as ``interleave_code_pairs`` and
+    the streaming build make them. Exact ties still rank by ascending index,
+    so the result is the twin's, which the CPU runs."""
     order, starts = (np.asarray(a, dtype=np.int64) for a in plan)
     if planes.psi_codes.dtype != torch.uint8:
         raise ValueError(f"search_grouped: needs uint8 codes, got {planes.psi_codes.dtype}")
@@ -265,29 +302,32 @@ def search_grouped(planes, dxs, dys, min_obs, min_lh, *, plan, **kw):
     G = lib.kb_search_grouped_max_group()
     if len(order) != C or starts[0] != 0 or (np.diff(bounds) <= 0).any() or np.diff(bounds).max() > G:
         raise ValueError(f"search_grouped: the plan must split all {C} candidates into groups of 1..{G}")
-    # Shared memory: the group's offsets and, per time step, the box of code
-    # pairs that covers every member's window: the row tile plus the group's
-    # row spread, by the column tile plus its column spread, within the image.
+    if sorted(order.tolist()) != list(range(C)):
+        raise ValueError("search_grouped: the plan's order must be a permutation of the candidates")
+    if T >= 1 << 16:
+        raise ValueError(f"search_grouped: T={T} above the kernel's 65535")
+    if Wp > W and bool(pairs[:, :, W:].any()):
+        raise ValueError("search_grouped: the code pairs' padding columns must be zero")
+    dx_np = np.asarray(torch.as_tensor(dxs).cpu(), dtype=np.int64)
+    dy_np = np.asarray(torch.as_tensor(dys).cpu(), dtype=np.int64)
+    st = k5_staging(dx_np, dy_np, kw["x_min"], kw["y_min"], (order, starts))
+    tile = tuple(lib.kb_search_grouped_tile(a) for a in range(3))
+    if (tile != (K5_TILE_ROWS, K5_TILE_COLS, K5_CHUNK) or G != GROUP_G
+            or st["smem_bytes"] != lib.kb_search_grouped_smem_bytes(T, st["buf_elems"])):
+        raise RuntimeError("search_grouped: host and kernel disagree on the tile, group or shared-memory layout")
     order_t = torch.as_tensor(order, device=dev)
     ox, oy = ox[order_t].contiguous(), oy[order_t].contiguous()
-    dx_np = np.asarray(torch.as_tensor(dxs).cpu(), dtype=np.int64)[order]
-    dy_np = np.asarray(torch.as_tensor(dys).cpu(), dtype=np.int64)[order]
-    row_spread = int((np.maximum.reduceat(dy_np, starts) - np.minimum.reduceat(dy_np, starts)).max())
-    col_spread = int((np.maximum.reduceat(dx_np, starts) - np.minimum.reduceat(dx_np, starts)).max())
-    box_rows = min(lib.kb_search_grouped_tile(0) + row_spread, H)
-    box_cols = min(-(-(lib.kb_search_grouped_tile(1) + col_spread + 7) // 8) * 8, Wp)
-    smem = lib.kb_search_grouped_smem_bytes(T, box_rows, box_cols)
-    if smem > _build.MAX_SMEM_BYTES:
-        raise ValueError(f"search_grouped: a group's {box_rows}x{box_cols} window does not fit shared memory")
     gidx = (order_t.to(torch.int32) + int(kw.get("cand_offset", 0))).contiguous()
     cand_ok = cand_ok[order_t].contiguous()
     gstart = torch.as_tensor(bounds.astype(np.int32), device=dev)
+    lay = torch.as_tensor(st["lay"], device=dev)
+    off = torch.as_tensor(st["off"], device=dev)
     top_lh = torch.empty((K, SH, SW), dtype=torch.float32, device=dev)
     top_idx = torch.empty((K, SH, SW), dtype=torch.int32, device=dev)
     err = lib.kb_search_grouped(
         pairs.data_ptr(), ox.data_ptr(), oy.data_ptr(), gidx.data_ptr(), cand_ok.data_ptr(),
-        gstart.data_ptr(), len(starts), T, H, W, Wp, SH, SW, K, int(smem), *em,
-        *_gate_args(min_obs, min_lh, kw), top_lh.data_ptr(), top_idx.data_ptr(),
+        gstart.data_ptr(), lay.data_ptr(), off.data_ptr(), len(starts), T, H, Wp, SH, SW, K,
+        st["buf_elems"], *em, *_gate_args(min_obs, min_lh, kw), top_lh.data_ptr(), top_idx.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "search_grouped")

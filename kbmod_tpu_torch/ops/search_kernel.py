@@ -4,34 +4,43 @@
 package's ops/search_pallas.py:182, entry ``search_topk_pallas``). On a CUDA
 tensor it launches ``csrc/search_topk.cu``; on a CPU tensor it runs
 ``search_topk_shift``, the twin with the signature and (K, SH, SW) outputs
-of the JAX package's ``search_topk_shift`` (ops/search.py:853). Both rank-
-insert each candidate at ``p = #(top >= new)``, so exact likelihood ties
-keep the lower candidate index. The kernel is bound by operations and the
-load path (every sample is a bounds test, three loads and three adds); its
-source note says what the design does about that.
+of the JAX package's ``search_topk_shift`` (ops/search.py:853). The twin
+rank-inserts each candidate, in index order, at ``p = #(top >= new)``; the
+kernel takes the candidates in groups (``search_plan.grouped_plan``) and
+inserts by (lh desc, index asc), which is the same order, so exact
+likelihood ties keep the lower candidate index either way. The kernel stages
+each group's windows in shared memory (:func:`k2_staging` computes the
+layout on the host); its source note says what bounds it and what the
+design does about that.
 """
 
 import ctypes
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from kbmod_tpu_torch.ops import _build
+from kbmod_tpu_torch.ops.search_plan import GROUP_G, grouped_plan, staging_header_bytes, window_layout_cached
 
 FLT_MAX = float(np.finfo(np.float32).max)
-# The kernel keeps its top-K in registers, with K templated up to this.
+# The kernel keeps each pixel's top-K in registers while it inserts a
+# group, with K templated up to this.
 MAX_K = 64
-# Dynamic shared memory a block stages offsets in without opting in to more.
-_STAGE_BYTES = 48 * 1024
+# The kernel's block tile (rows, columns) and staging chunk in pixels
+# (kb_search_topk_tile in csrc/search_topk.cu).
+K2_TILE_ROWS, K2_TILE_COLS, K2_CHUNK = 4, 256, 16
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "kb_search_topk": (
-        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I, _P, _P, _P],
+        [_P] * 10 + [_I] * 9 + [_F, _F, _I, _I, _I, _P, _P, _P],
         ctypes.c_int,
     ),
     "kb_search_topk_smem_bytes": ([_I, _I], ctypes.c_size_t),
-    "kb_search_topk_cand_batch": ([], ctypes.c_int),
+    "kb_search_topk_tile": ([_I], ctypes.c_int),
+    "kb_search_topk_max_group": ([], ctypes.c_int),
+    "kb_search_topk_blocks_per_sm": ([_I, _I], ctypes.c_int),
 }
 
 
@@ -116,12 +125,50 @@ def search_topk_shift(
 search_topk_shift.calls = 0
 
 
-def _stage_candidates(C, T, batch):
-    """Candidates staged in shared memory per batch: as many as 48 KB holds,
-    a multiple of the kernel's candidate batch, at least one batch."""
-    per = 8 * T + 1
-    cs = max(batch, (_STAGE_BYTES // per) // batch * batch)
-    return min(cs, -(-C // batch) * batch)
+def k2_staging(dxs, dys, x_min, y_min):
+    """The K2 kernel's host plan for (C, T) offsets: the grouping plan, the
+    window layout of its staged windows and the shared memory it needs.
+
+    Returns a dict with ``order`` (C,) and ``starts`` (NG,) (group g holds
+    ``order[starts[g]:starts[g + 1]]``, 1..8 candidates), ``lay`` (NG, T,
+    5) and ``off`` (NG, T, 8) (``search_plan.window_layout``),
+    ``buf_elems`` (pixels of one staging buffer) and ``smem_bytes`` (the
+    header of offsets and layout, plus two buffers of 9 bytes a pixel:
+    psi, phi and validity). Raises ValueError when that exceeds a block's
+    shared memory.
+    """
+    dxs = np.asarray(dxs, dtype=np.int64)
+    dys = np.asarray(dys, dtype=np.int64)
+    C, T = dys.shape
+    (order, starts), _ = grouped_plan(dys)
+    lay, off, buf_elems = window_layout_cached(
+        dxs[order] + int(x_min), dys[order] + int(y_min), starts,
+        tile_rows=K2_TILE_ROWS, tile_cols=K2_TILE_COLS, chunk=K2_CHUNK,
+    )
+    smem = staging_header_bytes(T) + 2 * 9 * buf_elems
+    if smem > _build.MAX_SMEM_BYTES:
+        raise ValueError(f"search_topk: T={T} windows need {smem} bytes of shared memory")
+    return dict(order=order, starts=starts, lay=lay, off=off, buf_elems=buf_elems, smem_bytes=smem)
+
+
+def _padded_planes(psi, phi, valid, has_masked):
+    """psi, phi (and valid) with rows padded with zeros to a multiple of
+    16 pixels and 16-byte aligned, as the kernel's 16-byte copies need;
+    unchanged where they already are."""
+    W = psi.shape[2]
+    Wp = -(-W // K2_CHUNK) * K2_CHUNK
+    planes = [psi, phi] + ([valid] if has_masked else [])
+    out = []
+    for p in planes:
+        p = p.contiguous()
+        if Wp != W:
+            p = F.pad(p, (0, Wp - W))
+        elif p.data_ptr() % 16:
+            p = p.clone()
+        out.append(p)
+    if not has_masked:
+        out.append(out[0])  # not read
+    return out, Wp
 
 
 def search_topk(
@@ -155,32 +202,44 @@ def search_topk(
         raise ValueError(f"search_topk: empty search window {SH}x{SW}")
     if phi.shape != psi.shape or (has_masked and valid.shape != psi.shape):
         raise ValueError("search_topk: psi, phi and valid must share one (T, H, W) shape")
-    if dxs.shape != (C, T) or dys.shape != (C, T):
+    if tuple(dxs.shape) != (C, T) or tuple(dys.shape) != (C, T):
         raise ValueError(f"search_topk: offsets must be (C, T) = ({C}, {T})")
     if psi.dtype != torch.float32 or phi.dtype != torch.float32:
         raise ValueError("search_topk: psi and phi must be float32")
-    psi = psi.contiguous()
-    phi = phi.contiguous()
-    valid = valid.to(device=dev, dtype=torch.uint8).contiguous() if has_masked else psi
-    ox = (torch.as_tensor(dxs, device=dev).to(torch.int32) + int(x_min)).contiguous()
-    oy = (torch.as_tensor(dys, device=dev).to(torch.int32) + int(y_min)).contiguous()
-    if cand_valid is None:
-        cand_ok = torch.ones(C, dtype=torch.uint8, device=dev)
-    else:
-        cand_ok = torch.as_tensor(cand_valid, device=dev).reshape(C).to(torch.uint8).contiguous()
-    lib = _lib()
-    cs = _stage_candidates(C, T, lib.kb_search_topk_cand_batch())
-    if lib.kb_search_topk_smem_bytes(cs, T) > _build.MAX_SMEM_BYTES:
-        raise ValueError(f"search_topk: T={T} offsets do not fit one block's shared memory")
+    if T >= 1 << 16:
+        raise ValueError(f"search_topk: T={T} above the kernel's 65535")
     top_lh = torch.empty((K, SH, SW), dtype=torch.float32, device=dev)
     top_idx = torch.empty((K, SH, SW), dtype=torch.int32, device=dev)
     if C == 0:
         top_lh.fill_(-FLT_MAX)
         top_idx.fill_(-1)
         return top_lh, top_idx
+    dx_np = torch.as_tensor(dxs).cpu().numpy()
+    dy_np = torch.as_tensor(dys).cpu().numpy()
+    st = k2_staging(dx_np, dy_np, x_min, y_min)
+    lib = _lib()
+    tile = tuple(lib.kb_search_topk_tile(a) for a in range(3))
+    if (tile != (K2_TILE_ROWS, K2_TILE_COLS, K2_CHUNK) or lib.kb_search_topk_max_group() != GROUP_G
+            or st["smem_bytes"] != lib.kb_search_topk_smem_bytes(T, st["buf_elems"])):
+        raise RuntimeError("search_topk: host and kernel disagree on the tile, group or shared-memory layout")
+    (psi_p, phi_p, valid_p), Wp = _padded_planes(
+        psi, phi, valid.to(device=dev, dtype=torch.uint8) if has_masked else None, has_masked)
+    order = st["order"]
+    ox = torch.as_tensor((dx_np[order] + int(x_min)).astype(np.int32), device=dev)
+    oy = torch.as_tensor((dy_np[order] + int(y_min)).astype(np.int32), device=dev)
+    order_t = torch.as_tensor(order.astype(np.int64), device=dev)
+    gidx = (order_t.to(torch.int32) + int(cand_offset)).contiguous()
+    if cand_valid is None:
+        cand_ok = torch.ones(C, dtype=torch.uint8, device=dev)
+    else:
+        cand_ok = torch.as_tensor(cand_valid, device=dev).reshape(C).to(torch.uint8)[order_t].contiguous()
+    gstart = torch.as_tensor(np.append(st["starts"], C).astype(np.int32), device=dev)
+    lay = torch.as_tensor(st["lay"], device=dev)
+    off = torch.as_tensor(st["off"], device=dev)
     err = lib.kb_search_topk(
-        psi.data_ptr(), phi.data_ptr(), valid.data_ptr(), ox.data_ptr(), oy.data_ptr(),
-        cand_ok.data_ptr(), C, T, H, W, SH, SW, K, cs, int(cand_offset),
+        psi_p.data_ptr(), phi_p.data_ptr(), valid_p.data_ptr(), ox.data_ptr(), oy.data_ptr(),
+        gidx.data_ptr(), cand_ok.data_ptr(), gstart.data_ptr(), lay.data_ptr(), off.data_ptr(),
+        len(st["starts"]), T, H, W, Wp, SH, SW, K, st["buf_elems"],
         float(min_obs), float(min_lh), int(bool(gate_min_obs)), int(bool(gate_min_lh)),
         int(bool(has_masked)), top_lh.data_ptr(), top_idx.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,

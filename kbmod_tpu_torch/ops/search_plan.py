@@ -13,7 +13,10 @@ in PyTorch on the maps' device.
 - :func:`_plan_groups` sorts candidates by their last-time row offset and
   packs consecutive ones into groups of at most G whose per-time rows lie
   within S of each other; :func:`_plan_groups_uniform` groups candidates
-  whose per-time rows are identical. Kernel K5 searches a group at a time.
+  whose per-time rows are identical; :func:`grouped_plan` picks between
+  them. Kernels K2 and K5 search a group at a time.
+- :func:`window_layout` lays out, for the grouped kernels, the windows a
+  block stages in shared memory for each (group, time step).
 """
 
 import hashlib
@@ -22,9 +25,13 @@ import numpy as np
 import torch
 
 FLT_MAX = float(np.finfo(np.float32).max)
+# Group size and row spread of the grouped kernels' plan (K2, K5).
+GROUP_G = 8
+GROUP_S = 8
 
 _DEDUP_CACHE = {}
 _PLAN_CACHE = {}
+_LAYOUT_CACHE = {}
 
 
 def _content_key(*arrays):
@@ -205,3 +212,98 @@ def _plan_groups_cached(dys_np, G, S, max_entries=8, uniform=False):
         plan = _plan_groups_uniform(dys_np, G) if uniform else _plan_groups(dys_np, G, S)
         hit = _cache_put(_PLAN_CACHE, key, plan, max_entries)
     return hit
+
+
+def grouped_plan(dys_np, G=GROUP_G, S=GROUP_S):
+    """The grouping plan of the grouped kernels (K2, K5) and whether it
+    fills.
+
+    The spread plan fills when its slots (groups x G) stay within max(1.6 C,
+    C + 4 G), i.e. its groups are mostly full. Where the uniform plan
+    (members share every row, so a group's window is no taller than the
+    tile) costs at most max(1.25x, +2 G) the spread plan's slots, it is
+    taken instead, the JAX package's rule (ops/search_pallas.py:2113-2117,
+    :2713-2738) at its G = 8. Returns ((order, starts), fills)."""
+    dys_np = np.asarray(dys_np, dtype=np.int32)
+    plan = _plan_groups_cached(dys_np, G, S)
+    C, slots = dys_np.shape[0], len(plan[1]) * G
+    fills = slots <= max(1.6 * C, C + 4 * G)
+    uniform = _plan_groups_cached(dys_np, G, 0, uniform=True)
+    if len(uniform[1]) * G <= max(1.25 * slots, slots + 2 * G):
+        plan = uniform
+    return plan, fills
+
+
+def _round_up(x, m):
+    return -(-x // m) * m
+
+
+def staging_header_bytes(T, G=GROUP_G):
+    """Shared memory a grouped kernel (K2, K5) keeps for a group's tables
+    over T steps: its offsets (2 G ints a step), layout rows (5) and member
+    offsets (G), rounded up to 16 bytes."""
+    return _round_up((3 * G + 5) * T * 4, 16)
+
+
+def window_layout_cached(ox, oy, starts, max_entries=8, **kw):
+    """Content-keyed cache around :func:`window_layout`: repeated searches
+    over one grid lay out their windows once."""
+    ox, oy, starts = (np.ascontiguousarray(a, dtype=np.int64) for a in (ox, oy, starts))
+    key = _content_key(ox, oy, starts) + tuple(sorted(kw.items()))
+    hit = _LAYOUT_CACHE.get(key)
+    if hit is None:
+        hit = _cache_put(_LAYOUT_CACHE, key, window_layout(ox, oy, starts, **kw), max_entries)
+    return hit
+
+
+def window_layout(ox, oy, starts, *, tile_rows, tile_cols, chunk, extra=0, G=GROUP_G):
+    """Shared-memory layout of a grouped kernel's staged windows
+    (csrc/stage_window.cuh).
+
+    ox, oy: (C, T) window-origin offsets (x_min + dx, y_min + dy) in plan
+    order; ``starts`` the groups' first slots. A block owns a tile of
+    ``tile_rows`` x ``tile_cols`` pixels at a column that is a multiple of
+    ``chunk``; a member's window is the tile moved by its offsets, plus
+    ``extra`` columns on the right. For each (group, t) the kernel stages
+    either one box that covers every member's window, or one slab per
+    member (its own window, its column rounded down to the chunk), whichever
+    holds fewer pixels.
+
+    Returns (lay, off, buf_elems): lay (NG, T, 5) int32 rows (nslab, rows,
+    pitch, y, x); off (NG, T, G) int32, each member's window origin in
+    pixels within the buffer (0 past the group's size); buf_elems, the
+    largest step's pixel count, the size of one staging buffer.
+    """
+    ox = np.asarray(ox, dtype=np.int64)
+    oy = np.asarray(oy, dtype=np.int64)
+    starts = np.asarray(starts, dtype=np.int64)
+    C, T = ox.shape
+    NG = len(starts)
+    n = np.diff(np.append(starts, C))
+    xmin, xmax = np.minimum.reduceat(ox, starts), np.maximum.reduceat(ox, starts)
+    ymin, ymax = np.minimum.reduceat(oy, starts), np.maximum.reduceat(oy, starts)
+    xlo = xmin & ~(chunk - 1)
+    box_rows = tile_rows + ymax - ymin
+    box_pitch = _round_up(xmax + tile_cols + extra - xlo, chunk)
+    mem_pitch = _round_up(tile_cols + extra + chunk - 1, chunk)
+    box = box_rows * box_pitch <= n[:, None] * tile_rows * mem_pitch
+    lay = np.stack(
+        [
+            np.where(box, 1, n[:, None]),
+            np.where(box, box_rows, tile_rows),
+            np.where(box, box_pitch, mem_pitch),
+            ymin,
+            xlo,
+        ],
+        axis=-1,
+    )
+    grp = np.repeat(np.arange(NG), n)
+    member = np.arange(C) - starts[grp]
+    off_box = (oy - ymin[grp]) * box_pitch[grp] + (ox - xlo[grp])
+    off_mem = member[:, None] * tile_rows * mem_pitch + (ox & (chunk - 1))
+    off = np.zeros((NG, T, G), dtype=np.int64)
+    off[grp[:, None], np.arange(T)[None, :], member[:, None]] = np.where(box[grp], off_box, off_mem)
+    buf_elems = int((lay[..., 0] * lay[..., 1] * lay[..., 2]).max())
+    if np.abs(lay).max() >= 2**31 or off.max() >= 2**31:
+        raise ValueError("window_layout: offsets beyond int32")
+    return lay.astype(np.int32), off.astype(np.int32), buf_elems

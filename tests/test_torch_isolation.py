@@ -1,7 +1,8 @@
 """kbmod_tpu_torch stands alone: it imports and runs a CPU search (float
-and uint8) with ``jax`` and ``kbmod_tpu`` blocked, ``chip_smoke.py``
-imports neither, and an entry point left to its default device (CUDA)
-raises on a host without a card."""
+and uint8) with ``jax`` and ``kbmod_tpu`` blocked, no module of the port
+(``scripts/`` included) nor ``chip_smoke.py`` imports either at any depth
+of its code, and an entry point left to its default device (CUDA) raises
+on a host without a card."""
 
 import ast
 import os
@@ -74,6 +75,29 @@ def test_chip_smoke_imports_no_jax():
     assert any(n.startswith("kbmod_tpu_torch") for n in names)
     bad = [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "kbmod_tpu")]
     assert not bad, f"chip_smoke.py imports {bad}"
+
+
+_PORT_FILES = sorted(
+    os.path.relpath(os.path.join(root, name), REPO_ROOT)
+    for root, _, files in os.walk(os.path.join(REPO_ROOT, "kbmod_tpu_torch"))
+    for name in files
+    if name.endswith(".py")
+)
+
+
+def test_port_walk_finds_every_package():
+    assert "kbmod_tpu_torch/scripts/exactrow_microbench.py" in _PORT_FILES
+    assert "kbmod_tpu_torch/ops/search_kernel.py" in _PORT_FILES
+    assert len(_PORT_FILES) >= 25
+
+
+@pytest.mark.parametrize("path", _PORT_FILES)
+def test_port_module_imports_no_jax(path):
+    """Every module of the port, at any depth of its code, imports neither
+    JAX nor the JAX package (relative imports stay inside the port)."""
+    names = _imported_modules(os.path.join(REPO_ROOT, path))
+    bad = [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "kbmod_tpu")]
+    assert not bad, f"{path} imports {bad}"
 
 
 def test_default_device_raises_without_cuda():

@@ -9,8 +9,9 @@ without the conftest:
 
 Tolerances: K1 to rtol = atol = 1e-5 with equal NaN masks (kernel and
 twin take the same rounded steps in the same order: bit equality is
-expected); K2-K5 indices equal and lh bit-equal (the same integer sums, the
-decode rounded step by step, IEEE sqrt and division on both sides).
+expected); K2-K5 indices equal and lh bit-equal (the same float adds in
+the same order, or the same integer sums and the decode rounded step by
+step, IEEE sqrt and division on both sides); K6 exact int32 equality.
 """
 
 import numpy as np
@@ -18,9 +19,10 @@ import pytest
 import torch
 
 from kbmod_tpu_torch.core.psf import PSF
-from kbmod_tpu_torch.ops import conv_kernel, search_encoded_kernel, search_kernel
+from kbmod_tpu_torch.ops import conv_kernel, exactrow_kernel, search_encoded_kernel, search_kernel
 from kbmod_tpu_torch.ops.search import EncodedPlanes, trajectory_offsets
 from kbmod_tpu_torch.ops.search_encoded import search_topk_encoded
+from kbmod_tpu_torch.ops import search_plan
 from kbmod_tpu_torch.ops.search_plan import _plan_groups
 
 pytestmark = pytest.mark.gpu
@@ -109,6 +111,51 @@ def test_k2_matches_twin(dev, name):
     assert torch.equal(got[0], ref[0])
 
 
+def _grouped_inputs(dev, T=9, H=40, W=300, C=29, seed=13, vx=8.0, dup=11):
+    """Candidates whose rows move little, so the plan makes real groups; C
+    not a multiple of 8; candidate 1 copied ``dup`` times, so its exact ties
+    span two groups."""
+    rng = np.random.default_rng(seed)
+    times = np.linspace(0.0, 2.0, T)
+    valid = (rng.uniform(size=(T, H, W)) > 0.06).astype(np.uint8)
+    psi = np.where(valid, rng.normal(0, 1, (T, H, W)), 0).astype(np.float32)
+    phi = np.where(valid, rng.uniform(0.5, 2.0, (T, H, W)), 0).astype(np.float32)
+    vxs = rng.uniform(-vx, vx, C).astype(np.float32)
+    vys = rng.uniform(-1.5, 1.5, C).astype(np.float32)
+    vxs[C - dup :], vys[C - dup :] = vxs[1], vys[1]
+    dxs, dys = trajectory_offsets(vxs, vys, times)
+    return [torch.as_tensor(a, device=dev) for a in (psi, phi, valid, dxs, dys)]
+
+
+K2_GROUPED_CASES = {
+    "groups": dict(k_results=8),
+    "ties_across_groups": dict(k_results=32),
+    "k64": dict(k_results=64, gate_min_obs=False),
+    "unmasked": dict(k_results=8, has_masked=False),
+    "negative_origins": dict(k_results=6, x_min=-37, x_max=250, y_min=-11, y_max=30),
+    "wide_spread": dict(k_results=8, vx=120.0),
+}
+
+
+@pytest.mark.parametrize("name", sorted(K2_GROUPED_CASES))
+def test_k2_grouped_cases_match_twin(dev, name):
+    kw = dict(K2_GROUPED_CASES[name])
+    psi, phi, valid, dxs, dys = _grouped_inputs(dev, vx=kw.pop("vx", 8.0))
+    T, H, W = psi.shape
+    kw = dict(dict(x_min=0, x_max=W, y_min=0, y_max=H), **kw)
+    if not kw.get("has_masked", True):
+        valid = torch.ones_like(valid)
+    plan, _ = search_plan.grouped_plan(dys.cpu().numpy())
+    assert len(plan[1]) < len(dxs), "the plan made no group of two"
+    args = (psi, phi, valid, dxs, dys, 2.0, 0.0)
+    launches = search_kernel.search_topk.launches
+    got = search_kernel.search_topk(*args, **kw)
+    ref = search_kernel.search_topk_shift(*args, **kw)
+    assert search_kernel.search_topk.launches == launches + 1
+    assert torch.equal(got[1], ref[1])
+    assert torch.equal(got[0], ref[0])
+
+
 def test_k2_padding_and_ties(dev):
     psi, phi, valid, dxs, dys = _search_inputs(dev)
     T, H, W = psi.shape
@@ -163,6 +210,7 @@ ENC_CASES = {
     "full": dict(k_results=8),
     "k1": dict(k_results=1),
     "k32": dict(k_results=32, gate_min_obs=False),
+    "k64": dict(k_results=64),
     "reduced": dict(k_results=5, x_min=9, x_max=40, y_min=3, y_max=30),
     "extended": dict(k_results=6, x_min=-7, x_max=62, y_min=-5, y_max=44),
     "min_lh_gate": dict(k_results=3, gate_min_lh=True, min_lh=0.8),
@@ -171,7 +219,10 @@ ENC_CASES = {
 
 
 @pytest.mark.parametrize("name", sorted(ENC_CASES))
-@pytest.mark.parametrize("kernel,bits,T", [("K3", 16, 7), ("K3", 8, 260), ("K4", 8, 7), ("K5", 8, 7), ("K5", 8, 300)])
+@pytest.mark.parametrize(
+    "kernel,bits,T",
+    [("K3", 16, 7), ("K3", 8, 260), ("K4", 8, 7), ("K5", 8, 7), ("K5", 8, 257), ("K5", 8, 258), ("K5", 8, 300)],
+)
 def test_encoded_kernels_match_twin(dev, kernel, bits, T, name):
     planes, dxs, dys = _encoded_inputs(dev, T, bits)
     kw = dict(ENC_CASES[name])
@@ -194,6 +245,49 @@ def test_encoded_kernels_match_twin(dev, kernel, bits, T, name):
     )
     assert torch.equal(got[1], ref[1])
     assert torch.equal(got[0], ref[0])
+
+
+def test_k5_odd_shifts_and_spread(dev):
+    """K5 where members' columns differ by odd amounts (each word a funnel
+    shift of two) and spread far (one slab per member)."""
+    planes, dxs, dys = _encoded_inputs(dev, 9, 8, W=301, vmax=60.0)
+    assert (dxs % 2 == 1).any()
+    _, H, W = planes.shape
+    plan = _plan_groups(dys, 8, 8)
+    assert len(plan[1]) < len(dxs)
+    dx, dy = torch.as_tensor(dxs, device=dev), torch.as_tensor(dys, device=dev)
+    for K in (8, 32, 64):
+        kw = dict(x_min=-3, x_max=W, y_min=0, y_max=H, k_results=K)
+        got = search_encoded_kernel.search_grouped(planes, dx, dy, 2.0, 0.0, plan=plan, **kw)
+        ref = search_encoded_kernel.search_topk_encoded_shift(
+            planes.psi_codes, planes.phi_codes, dx, dy, 2.0, 0.0, planes.em, **kw
+        )
+        assert torch.equal(got[1], ref[1]) and torch.equal(got[0], ref[0])
+
+
+K6_DRAWS = ["script", "wrap"]
+
+
+@pytest.mark.parametrize("mode", ["A", "B", "C"])
+@pytest.mark.parametrize("draw", K6_DRAWS)
+def test_k6_matches_twin(dev, draw, mode):
+    from kbmod_tpu_torch.scripts.exactrow_microbench import make_inputs
+
+    tbl, buf = make_inputs(device=dev)
+    if draw == "wrap":
+        rng = np.random.default_rng(9)
+        rows, W4 = buf.shape
+        T, SL = tbl.shape[1] // 3, 40
+        tbl = torch.as_tensor(
+            np.concatenate([rng.integers(0, SL, (64, T)), rng.integers(0, rows - SL + 1, (64, T)),
+                            rng.integers(0, 3 * W4, (64, T))], axis=1).astype(np.int32),
+            device=dev,
+        )
+    launches = exactrow_kernel.exactrow_accumulate.launches
+    got = exactrow_kernel.exactrow_accumulate(tbl, buf, mode, 8, 32)
+    assert exactrow_kernel.exactrow_accumulate.launches == launches + 1
+    ref = exactrow_kernel.exactrow_accumulate_plain(tbl, buf, mode, 8, 32)
+    assert torch.equal(got, ref)
 
 
 def test_dispatcher_dedup_on_card(dev):
