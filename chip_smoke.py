@@ -9,9 +9,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 1. the card's name and power limit (nvidia-smi);
 2. the nvcc build of every CUDA kernel, all sources compiled together;
 3. kernel checks: each kernel against its plain PyTorch twin on the card
-   (K1, K2; K3, K4 and K5 over uint8/uint16 codes, T up to 300; dedup;
-   K6 in modes A, B and C), and each redesigned kernel's ptxas registers
-   and spills;
+   (K1 over PSFs from 1 x 1 to 21 x 21; K2; K3, K4 and K5 over
+   uint8/uint16 codes, T up to 300; the grouped kernels K2, K5 and K3 at
+   T = 1,000-1,500, past the T their tables once capped; dedup; K6 in
+   modes A, B and C), and each redesigned kernel's ptxas registers and
+   spills;
 4. the float main path at full width: a 64 x 2048 x 2048 FakeDataSet stack
    (PSF sigma 1.4, 1% masked, one injected object) searched by
    ``StackSearch(..., -1).search_all`` over a 41 x 41 KBMODV1Search grid,
@@ -54,11 +56,15 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
-K1_TOL = 1e-5  # rtol and atol of K1 against its twin (same op order: expect 0)
-SOURCES = ["psi_phi_conv", "search_topk", "search_topk_encoded", "search_topk_grouped", "exactrow_microbench"]
-# Sources whose kernels this slice redesigned or added: their ptxas
-# register and spill lines are printed on their own.
-REPORTED = ("search_topk", "search_topk_grouped", "exactrow_microbench")
+# Warp instructions the card issues a second (132 SMs x 4 schedulers at
+# 1.98 GHz): the floor of a kernel that no fused multiply-add can shorten
+# (K1).
+WARP_INSTR_PER_S = 132 * 4 * 1.98e9
+SOURCES = ["psi_phi_conv", "search_topk", "search_topk_encoded", "search_topk_grouped", "search_topk_encoded_grouped",
+           "exactrow_microbench"]
+# Sources whose kernels were redesigned for the card: their ptxas register
+# and spill lines are printed on their own.
+REPORTED = ("psi_phi_conv", "search_topk", "search_topk_grouped", "search_topk_encoded_grouped", "exactrow_microbench")
 # The group count of the midscale search's uniform plan: K6 is timed there too.
 K6_MIDSCALE_NG = 3015
 # em of the JAX package's midscale_kernel benchmark (bench.py:176-178).
@@ -133,7 +139,24 @@ def bound(nbytes, nops, int_ops=0):
 # Kernel checks
 # ----------------------------------------------------------------------
 
+def _assert_k1_equal(tag, got, ref):
+    """K1 against its twin: NaN masks equal and every other value bit-equal.
+    Returns the largest |kernel - twin| (0 when equal)."""
+    worst = 0.0
+    for g, r, what in zip(got, ref, ("psi", "phi")):
+        nan = torch.isnan(r)
+        if not torch.equal(torch.isnan(g), nan):
+            raise AssertionError(f"K1 {tag} {what}: NaN masks differ")
+        worst = max(worst, float((g[~nan] - r[~nan]).abs().max()))
+        if not torch.equal(g[~nan], r[~nan]):
+            raise AssertionError(f"K1 {tag} {what}: values differ from the twin by up to {worst:.3g}")
+    return worst
+
+
 def check_k1(dev):
+    """K1 against its twin, bit for bit: the templated sizes (odd squares to
+    15 x 15) and the generic kernel (3 x 5, 4 x 4, 21 x 21), on a stack whose
+    width and height are multiples of neither tile."""
     from kbmod_tpu_torch.core.psf import PSF
     from kbmod_tpu_torch.ops.conv_kernel import psi_phi_conv, psi_phi_conv_plain
 
@@ -145,20 +168,16 @@ def check_k1(dev):
     var[rng.uniform(size=sci.shape) < 0.01] = np.nan
     sci_d, var_d = torch.as_tensor(sci, device=dev), torch.as_tensor(var, device=dev)
     worst = 0.0
-    psfs = [("sigma=%.1f" % s, PSF.make_gaussian_kernel(s)) for s in (1.0, 1.4, 2.0)]
+    psfs = [("sigma=%.1f" % s, PSF.make_gaussian_kernel(s)) for s in (1.0, 1.4, 2.0, 2.5, 3.5)]
     psfs.append(("1x1", np.ones((1, 1), np.float32)))
+    psfs += [(f"{kh}x{kw}", rng.uniform(-0.1, 1, (kh, kw)).astype(np.float32)) for kh, kw in ((3, 5), (4, 4))]
     for name, psf in psfs:
         k = torch.as_tensor(psf, device=dev)
         got = psi_phi_conv(sci_d, var_d, k)
         ref = psi_phi_conv_plain(sci_d, var_d, k)
         torch.cuda.synchronize()
-        for g, r, what in zip(got, ref, ("psi", "phi")):
-            if not torch.equal(torch.isnan(g), torch.isnan(r)):
-                raise AssertionError(f"K1 {name} {what}: NaN masks differ")
-            torch.testing.assert_close(g, r, rtol=K1_TOL, atol=K1_TOL, equal_nan=True)
-            fin = torch.isfinite(r)
-            worst = max(worst, float((g[fin] - r[fin]).abs().max()))
-        log(f"K1 check {name} psf {tuple(psf.shape)}: ok (max |kernel - twin| so far {worst:.3g})")
+        worst = max(worst, _assert_k1_equal(name, got, ref))
+        log(f"K1 check {name} psf {tuple(psf.shape)}: ok (bit-equal)")
     return worst
 
 
@@ -398,6 +417,50 @@ def check_encoded(dev):
             raise AssertionError(f"dedup check: route {route} did not dedup")
         err, nonzero = _assert_k2_equal(f"dedup K={K}", got, ref, "dedup")
         log(f"dedup check ({route}, {len(vxs)} candidates) K={K:2d}: ok (indices equal, max |dlh| {err:.3g})")
+    return worst
+
+
+def check_long_t(dev):
+    """K2 at T = 1,000, K5 at T = 1,500 and K3 (uint16) at T = 1,000 on small
+    images against their twins: the grouped kernels reload their tables
+    every 63 steps. Returns the largest |kernel - twin| lh per kernel."""
+    from kbmod_tpu_torch.ops import search_encoded_kernel as ek
+    from kbmod_tpu_torch.ops.search import trajectory_offsets
+    from kbmod_tpu_torch.ops.search_kernel import search_topk, search_topk_shift
+    from kbmod_tpu_torch.ops.search_plan import grouped_plan
+
+    worst = {}
+    for kernel, T in (("K2", 1000), ("K5", 1500), ("K3", 1000)):
+        rng = np.random.default_rng(T)
+        H, W, C = 40, 300, 21
+        times = np.linspace(0.0, 2.0, T)
+        vxs = rng.uniform(-20, 20, C).astype(np.float32)
+        vys = rng.uniform(-2, 2, C).astype(np.float32)
+        vxs[C - 4 :], vys[C - 4 :] = vxs[3], vys[3]  # exact ties
+        dxs, dys = trajectory_offsets(vxs, vys, times)
+        dx, dy = torch.as_tensor(dxs, device=dev), torch.as_tensor(dys, device=dev)
+        kw = dict(x_min=-7, x_max=W + 5, y_min=-3, y_max=H, k_results=8)
+        min_obs = float(T // 3)
+        if kernel == "K2":
+            valid = (rng.uniform(size=(T, H, W)) >= 0.05).astype(np.uint8)
+            psi = np.where(valid, rng.normal(0, 1, (T, H, W)), 0).astype(np.float32)
+            phi = np.where(valid, rng.uniform(0.5, 2.0, (T, H, W)), 0).astype(np.float32)
+            args = tuple(torch.as_tensor(a, device=dev) for a in (psi, phi, valid)) + (dx, dy, min_obs, 0.0)
+            got, ref = search_topk(*args, **kw), search_topk_shift(*args, **kw)
+        else:
+            bits = 8 if kernel == "K5" else 16
+            psi, phi = _code_stack(rng, T, H, W, bits)
+            em = MIDSCALE_EM if bits == 8 else np.array([-6.0, 12.0 / 65534, 0.1, 4.0 / 65534], np.float32)
+            planes = _planes(psi, phi, em, dev)
+            if kernel == "K5":
+                got = ek.search_grouped(planes, dx, dy, min_obs, 0.0, plan=grouped_plan(dys)[0], **kw)
+            else:
+                got = ek.search_encoded(planes, dx, dy, min_obs, 0.0, **kw)
+            ref = ek.search_topk_encoded_shift(planes.psi_codes, planes.phi_codes, dx, dy, min_obs, 0.0, em, **kw)
+        torch.cuda.synchronize()
+        err, nonzero = _assert_k2_equal(f"T={T}", got, ref, kernel)
+        worst[kernel] = err
+        log(f"{kernel} check T={T}: ok (indices equal, max |dlh| {err:.3g}, {nonzero} slots differ)")
     return worst
 
 
@@ -685,12 +748,16 @@ def time_k1(stack, dev):
     log(f"K1 timed; clocks (sm, max sm, power, temperature): {clocks()}")
     ref = psi_phi_conv_plain(sci, var, k)
     plain_ms = event_ms(lambda: psi_phi_conv_plain(sci, var, k), 1)
-    err = 0.0
-    for g, r in zip(got, ref):
-        torch.testing.assert_close(g, r, rtol=K1_TOL, atol=K1_TOL, equal_nan=True)
-        fin = torch.isfinite(r)
-        err = max(err, float((g[fin] - r[fin]).abs().max()))
+    err = _assert_k1_equal("main-path shapes", got, ref)
     del got, ref
+    from kbmod_tpu_torch.ops.conv_kernel import _lib as _k1_lib
+
+    # Issue floors: 8 instructions a tap and pixel with no fused multiply-add
+    # at all; 6 with the mask terms fused (their products are exact).
+    taps = T * H * W * kh * kw
+    log(f"K1 ({kh}x{kw}): {_k1_lib().kb_psi_phi_conv_blocks_per_sm(kh, kw)} blocks per SM; issue floor "
+        f"{8 * taps / 32 / WARP_INSTR_PER_S * 1e3:.3f} ms at 8 instructions a tap, "
+        f"{6 * taps / 32 / WARP_INSTR_PER_S * 1e3:.3f} ms at 6")
     # Library yardstick: cuDNN's grouped convolution of the four derived
     # planes, TF32 off. Timed only; the port never calls it.
     valid = torch.isfinite(sci) & torch.isfinite(var) & (var > 0)
@@ -844,15 +911,23 @@ def time_encoded(kernel, planes, times, cands, bounds, K, min_obs, min_lh, dev):
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     err, _ = _assert_k2_equal("main-path shapes", got, ref, kernel)
-    if kernel == "K5":
+    if kernel in ("K3", "K5"):
         from kbmod_tpu_torch.ops import _build
 
-        st = ek.k5_staging(dxs, dys, bounds["x_min"], bounds["y_min"], extra["plan"])
-        lib = _build.load("search_topk_grouped", ek._GRP_SIGNATURES)
         SH, SW = bounds["y_max"] - bounds["y_min"], bounds["x_max"] - bounds["x_min"]
-        log(f"K5 (K={K}): {len(extra['plan'][1])} groups, {st['smem_bytes']} bytes of shared memory, "
-            f"{lib.kb_search_grouped_blocks_per_sm(K, st['smem_bytes'])} blocks per SM; "
-            + _staged_traffic(st["lay"], 2, SH, SW, 4, 256, ms))
+        if kernel == "K5":
+            lib = _build.load("search_topk_grouped", ek._GRP_SIGNATURES)
+            st = ek.k5_staging(dxs, dys, bounds["x_min"], bounds["y_min"], extra["plan"])
+            ngroups, bpsm = len(extra["plan"][1]), lib.kb_search_grouped_blocks_per_sm(K, st["smem_bytes"])
+            px, tile = 2, (ek.K5_TILE_ROWS, ek.K5_TILE_COLS)
+        else:
+            lib = _build.load("search_topk_encoded_grouped", ek._K3_SIGNATURES)
+            bits = 8 * planes.psi_codes.element_size()
+            st = ek.k3_staging(dxs, dys, bounds["x_min"], bounds["y_min"], bits)
+            ngroups, bpsm = len(st["starts"]), lib.kb_search_encoded_blocks_per_sm(bits, K, st["smem_bytes"])
+            px, tile = bits // 4, (ek.K3_TILE_ROWS, ek.K3_TILE_COLS)
+        log(f"{kernel} (K={K}): {ngroups} groups, {st['smem_bytes']} bytes of shared memory, {bpsm} blocks per SM; "
+            + _staged_traffic(st["lay"], px, SH, SW, *tile, ms))
     (bound_ms, bound_by), n_samples = _encoded_bound(planes, dx_t, dy_t, bounds, K)
     SH, SW = bounds["y_max"] - bounds["y_min"], bounds["x_max"] - bounds["x_min"]
     return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms, bound_by=bound_by, err=err,
@@ -941,6 +1016,7 @@ def main():
     err_k1 = check_k1(dev)
     err_k2 = check_k2(dev)
     err_enc = check_encoded(dev)
+    err_long = check_long_t(dev)
     err_k6 = check_k6(dev)
     log(f"kernel checks: {time.perf_counter() - t0:.1f} s")
     if args.checks_only:
@@ -993,13 +1069,13 @@ def main():
     entries = [
         entry("psi_phi_conv", "psi_phi_conv.cu", "conv_pallas.py:32", launches["psi_phi_conv"], err_k1, k1),
         entry("search_topk", "search_topk.cu", "search_pallas.py:182", launches["search_topk"],
-              max(err_k2, k2_band["err"]), k2),
-        entry("search_encoded", "search_topk_encoded.cu", "search_pallas.py:505", launches["search_encoded"],
-              err_enc["K3"], k3),
+              max(err_k2, k2_band["err"], err_long["K2"]), k2),
+        entry("search_encoded", "search_topk_encoded_grouped.cu", "search_pallas.py:505", launches["search_encoded"],
+              max(err_enc["K3"], err_long["K3"]), k3),
         entry("search_paired", "search_topk_encoded.cu", "search_pallas.py:916", launches["search_paired"],
               err_enc["K4"], k4),
         entry("search_grouped", "search_topk_grouped.cu", "search_pallas.py:1493", launches["search_grouped"],
-              max(err_enc["K5"], k5_band["err"]), k5),
+              max(err_enc["K5"], k5_band["err"], err_long["K5"]), k5),
         # K6 at midscale's group count, in mode C (K5's inner loop); its
         # launches are those of its own path, the micro-benchmark script.
         entry("exactrow_accumulate", "exactrow_microbench.cu", "scripts/exactrow_microbench.py:49", launches_k6,

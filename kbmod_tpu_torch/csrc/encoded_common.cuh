@@ -1,6 +1,8 @@
-// Pieces shared by the encoded search kernels (K3, K4 in
-// search_topk_encoded.cu, K5 in search_topk_grouped.cu): the decode of
-// integer code sums, the likelihood and the top-K rank-insert. Every step
+// Pieces shared by the encoded search kernels (K4 in search_topk_encoded.cu,
+// K5 in search_topk_grouped.cu, K3 in search_topk_encoded_grouped.cu): the
+// decode of integer code sums, the likelihood, the top-K rank-insert, the
+// top-K map's reads and writes, and the launch helpers.
+// Every step
 // rounds on its own (nvcc would otherwise contract a*b+c into an fma), in
 // the order of the plain twin, search_topk_encoded_shift in
 // kbmod_tpu_torch/ops/search_encoded_kernel.py.
@@ -63,4 +65,80 @@ __device__ __forceinline__ float gated(float lh, int obs, bool cand_ok, float mi
     return ok ? lh : -INFINITY;
 }
 
+// Read pixel (i, j)'s top list from the (K_out, SH, SW) maps; slots past
+// K_out are empty.
+template <int KB>
+__device__ __forceinline__ void load_top(float (&top)[KB], int (&tidx)[KB], int K_out, int SH, int SW, int i, int j,
+                                         const float* top_lh, const int* top_idx) {
+#pragma unroll
+    for (int k = 0; k < KB; ++k) {
+        const size_t o = ((size_t)k * SH + i) * SW + j;
+        top[k] = k < K_out ? top_lh[o] : -FLT_MAX;
+        tidx[k] = k < K_out ? top_idx[o] : -1;
+    }
+}
+
+// Write pixel (i, j)'s first K_out slots to the (K_out, SH, SW) maps.
+template <int KB>
+__device__ __forceinline__ void store_top(const float (&top)[KB], const int (&tidx)[KB], int K_out, int SH, int SW,
+                                          int i, int j, float* top_lh, int* top_idx) {
+#pragma unroll
+    for (int k = 0; k < KB; ++k) {
+        if (k < K_out) {
+            const size_t o = ((size_t)k * SH + i) * SW + j;
+            top_lh[o] = top[k];
+            top_idx[o] = tidx[k];
+        }
+    }
+}
+
+// The decode and gate parameters of a launch.
+struct Decode {
+    float psi_min, psi_scale, phi_min, phi_scale;
+    float min_obs, min_lh;
+    int gate_min_obs, gate_min_lh;
+};
+
+// Insert a candidate's decoded sums (ps, fs over obs samples; ok false for
+// padding; gi its global index) into a pixel's top list by (lh desc, index
+// asc); psi_d and phi_d are min - scale, rounded once.
+template <int KB>
+__device__ __forceinline__ void insert_member(float (&top)[KB], int (&tidx)[KB], int ps, int fs, int obs, bool ok,
+                                              int gi, const Decode& D, float psi_d, float phi_d) {
+    const float fobs = (float)obs;
+    const float lh = likelihood(decode_sum(ps, fobs, D.psi_scale, psi_d), decode_sum(fs, fobs, D.phi_scale, phi_d));
+    rank_insert<KB, true>(top, tidx, gated(lh, obs, ok, D.min_obs, D.min_lh, D.gate_min_obs, D.gate_min_lh), gi);
+}
+
+// Resident blocks per SM of `kernel` at NT threads a block with smem bytes
+// of dynamic shared memory, or -1.
+template <int NT, typename Kernel>
+int occupancy(Kernel kernel, int smem) {
+    int n = -1;
+    if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, NT, smem) != cudaSuccess)
+        return -1;
+    return n;
+}
+
+// Launch `kernel` at NT threads a block with smem bytes of dynamic shared
+// memory; returns cudaGetLastError().
+template <int NT, typename Kernel, typename... Args>
+int launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t s, Args... args) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<grid, NT, smem, s>>>(args...);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace kb_encoded
+
+// Instantiate a templated call for the top-K list length that serves K_out.
+#define KB_DISPATCH(K_out, CALL)  \
+    if ((K_out) <= 1) CALL(1);    \
+    if ((K_out) <= 2) CALL(2);    \
+    if ((K_out) <= 4) CALL(4);    \
+    if ((K_out) <= 8) CALL(8);    \
+    if ((K_out) <= 16) CALL(16);  \
+    if ((K_out) <= 32) CALL(32);  \
+    if ((K_out) <= 64) CALL(64);

@@ -39,6 +39,10 @@
 //   barrier a step; pixels outside the image arrive as zeros with validity 0,
 //   so a sample is three shared loads, two adds of a selected value and a
 //   count, with no bounds test;
+// - the group's tables (offsets, layout rows) sit in shared memory 64 steps
+//   at a time (stage_window.cuh), so shared memory does not grow with T:
+//   holding all T steps at once (116 bytes a step) refused T >= 1,000 at
+//   the 41 x 41 grid's layout, where the JAX package has no such cap;
 // - each thread sums its rows for every member in t order, the adds of the
 //   twin in the twin's order (an invalid sample adds +0.0 in the twin, which
 //   leaves a sum that starts at +0.0 unchanged), so the result is bit-equal;
@@ -58,19 +62,15 @@ namespace {
 
 constexpr int kTW = 256;  // window columns per block
 constexpr int kTH = 4;    // window rows per block
-constexpr int kG = 8;     // most candidates in a group
 constexpr int kCH = 16;   // staging chunk in pixels: 64 bytes of float, 16 of validity
 
 using kb_encoded::gated;
 using kb_encoded::likelihood;
 using kb_encoded::rank_insert;
+using kb_stage::header_bytes;
+using kb_stage::kG;
 using kb_stage::kLay;
-
-// Shared memory header: the group's offsets (kG x T twice), its layout rows
-// (T x kLay) and member offsets (T x kG), rounded up to 16 bytes.
-__host__ __device__ inline size_t header_bytes(int T) {
-    return ((size_t)(3 * kG + kLay) * T * sizeof(int) + 15) / 16 * 16;
-}
+using kb_stage::kRows;
 
 // One staging buffer: buf_elems pixels of psi, of phi (float) and of validity.
 __host__ __device__ inline size_t buffer_bytes(int buf_elems) { return (size_t)buf_elems * 9; }
@@ -95,11 +95,12 @@ struct Planes {
     int has_masked;
 };
 
-// Issue the copies of time step t's windows into buffer b.
+// Issue the copies of time step t's windows into buffer b; lt is the
+// table row that holds step t.
 template <int NT>
-__device__ __forceinline__ void stage_step(const Planes& P, unsigned char* buf, int buf_elems, const int* s_ox,
-                                           const int* s_oy, const int* s_lay, int t, int i0, int col0) {
-    const int* lay = s_lay + t * kLay;
+__device__ __forceinline__ void stage_step(const Planes& P, unsigned char* buf, int buf_elems,
+                                           const kb_stage::Tables& s, int t, int lt, int i0, int col0) {
+    const int* lay = s.lay + lt * kLay;
     const int nrows = lay[0] * lay[1], pitch = lay[2];
     const int fchunks = pitch / 4, vchunks = P.has_masked ? pitch / 16 : 0;
     const int per_row = 2 * fchunks + vchunks;
@@ -109,7 +110,7 @@ __device__ __forceinline__ void stage_step(const Planes& P, unsigned char* buf, 
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     for (int sr = warp; sr < nrows; sr += NT / 32) {
         int y, x;
-        kb_stage::slab_row_origin(lay, s_ox, s_oy, P.T, t, sr, i0, col0, kCH, y, x);
+        kb_stage::slab_row_origin(s, lt, sr, i0, col0, kCH, y, x);
         const bool yin = (unsigned)y < (unsigned)P.H;
         const size_t row = ((size_t)t * P.H + (yin ? y : 0)) * P.Wp;
         const int drow = sr * pitch;
@@ -130,7 +131,9 @@ __device__ __forceinline__ void stage_step(const Planes& P, unsigned char* buf, 
     kb_stage::cp_async_commit();
 }
 
-template <int KB>
+// kLong: T > kRows, so the tables are reloaded every kStride steps; the
+// instantiation for shorter stacks has no reload code at all.
+template <int KB, bool kLong>
 __global__ void __launch_bounds__(Shape<KB>::kThreads, Shape<KB>::kMinBlocks)
     search_topk_kernel(Planes P, const int* __restrict__ ox, const int* __restrict__ oy,
                        const int* __restrict__ gidx, const uint8_t* __restrict__ cand_ok,
@@ -141,11 +144,9 @@ __global__ void __launch_bounds__(Shape<KB>::kThreads, Shape<KB>::kMinBlocks)
     extern __shared__ __align__(16) unsigned char smem[];
     constexpr int NT = Shape<KB>::kThreads, R = Shape<KB>::kR;
     const int T = P.T;
-    int* s_ox = reinterpret_cast<int*>(smem);  // (kG, T)
-    int* s_oy = s_ox + kG * T;                 // (kG, T)
-    int* s_lay = s_oy + kG * T;                // (T, kLay)
-    int* s_off = s_lay + kLay * T;             // (T, kG)
-    unsigned char* bufs = smem + header_bytes(T);
+    const kb_stage::Plan plan{ox, oy, gstart, lay, off, T};
+    const kb_stage::Tables s = kb_stage::tables_at(smem);
+    unsigned char* bufs = smem + header_bytes();
     const size_t bbytes = buffer_bytes(buf_elems);
 
     const int tx = threadIdx.x % kTW, ty = threadIdx.x / kTW;
@@ -169,14 +170,8 @@ __global__ void __launch_bounds__(Shape<KB>::kThreads, Shape<KB>::kMinBlocks)
         const int c0 = gstart[g];
         const int n = gstart[g + 1] - c0;
         __syncthreads();  // the previous group is done with the tables and buffers
-        for (int e = threadIdx.x; e < n * T; e += NT) {
-            s_ox[e] = ox[(size_t)c0 * T + e];
-            s_oy[e] = oy[(size_t)c0 * T + e];
-        }
-        for (int e = threadIdx.x; e < kLay * T; e += NT) s_lay[e] = lay[(size_t)g * kLay * T + e];
-        for (int e = threadIdx.x; e < kG * T; e += NT) s_off[e] = off[(size_t)g * kG * T + e];
+        kb_stage::load_tables<NT>(s, plan, g, 0);
         __syncthreads();
-        stage_step<NT>(P, bufs, buf_elems, s_ox, s_oy, s_lay, 0, i0, col0);
 
         float ap[kG][R], af[kG][R];
         int ao[kG][R / 2];  // two rows' counts as 16-bit fields (T < 65536)
@@ -188,19 +183,28 @@ __global__ void __launch_bounds__(Shape<KB>::kThreads, Shape<KB>::kMinBlocks)
             for (int r = 0; r < R / 2; ++r) ao[m][r] = 0;
         }
 
+        stage_step<NT>(P, bufs, buf_elems, s, 0, 0, i0, col0);
         for (int t = 0; t < T; ++t) {
             kb_stage::cp_async_wait_all();
             __syncthreads();  // step t has landed; every thread is done with step t - 1
-            if (t + 1 < T) stage_step<NT>(P, bufs + ((t + 1) & 1) * bbytes, buf_elems, s_ox, s_oy, s_lay, t + 1, i0, col0);
+            int lt = t;       // the table row of step t
+            if (kLong) {
+                lt = t % kb_stage::kStride;
+                if (t > 0 && lt == 0) {
+                    kb_stage::load_tables<NT>(s, plan, g, t);
+                    __syncthreads();
+                }
+            }
+            if (t + 1 < T) stage_step<NT>(P, bufs + ((t + 1) & 1) * bbytes, buf_elems, s, t + 1, lt + 1, i0, col0);
             const float* b_psi = reinterpret_cast<const float*>(bufs + (t & 1) * bbytes);
             const float* b_phi = b_psi + buf_elems;
             const uint8_t* b_val = reinterpret_cast<const uint8_t*>(b_phi + buf_elems);
-            const int pitch = s_lay[t * kLay + 2];
+            const int pitch = s.lay[lt * kLay + 2];
             if (P.has_masked) {
 #pragma unroll
                 for (int m = 0; m < kG; ++m) {
                     if (m < n) {
-                        const int o = s_off[t * kG + m] + tx + ty * R * pitch;
+                        const int o = s.off[lt * kG + m] + tx + ty * R * pitch;
 #pragma unroll
                         for (int r = 0; r < R; ++r) {
                             const int e = o + r * pitch;
@@ -217,9 +221,9 @@ __global__ void __launch_bounds__(Shape<KB>::kThreads, Shape<KB>::kMinBlocks)
 #pragma unroll
                 for (int m = 0; m < kG; ++m) {
                     if (m < n) {
-                        const int o = s_off[t * kG + m] + tx + ty * R * pitch;
-                        const bool xin = (unsigned)(col0 + s_ox[m * T + t] + tx) < (unsigned)P.W;
-                        const int yb = ir + s_oy[m * T + t];
+                        const int o = s.off[lt * kG + m] + tx + ty * R * pitch;
+                        const bool xin = (unsigned)(col0 + s.ox[m * kRows + lt] + tx) < (unsigned)P.W;
+                        const int yb = ir + s.oy[m * kRows + lt];
 #pragma unroll
                         for (int r = 0; r < R; ++r) {
                             const int e = o + r * pitch;
@@ -276,18 +280,18 @@ int kb_search_topk_max_group() { return kG; }
 // chunk in pixels (axis 2), for the host's window layout.
 int kb_search_topk_tile(int axis) { return axis == 0 ? kTH : (axis == 1 ? kTW : kCH); }
 
-// Shared memory for T time steps and staging buffers of buf_elems pixels.
-size_t kb_search_topk_smem_bytes(int T, int buf_elems) {
-    return header_bytes(T) + 2 * buffer_bytes(buf_elems);
-}
+// Shared memory for staging buffers of buf_elems pixels (and the tables,
+// whose size does not depend on T).
+size_t kb_search_topk_smem_bytes(int buf_elems) { return header_bytes() + 2 * buffer_bytes(buf_elems); }
 
-// Resident blocks per SM of the kernel for K_out with smem bytes of shared
-// memory (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or -1.
+// Resident blocks per SM of the kernel for K_out and T <= 64 with smem
+// bytes of shared memory (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+// or -1.
 int kb_search_topk_blocks_per_sm(int K_out, int smem) {
     int n = -1;
 #define KB_OCC(KB)                                                                                      \
     {                                                                                                   \
-        auto k = search_topk_kernel<KB>;                                                                \
+        auto k = search_topk_kernel<KB, false>;                                                         \
         if (cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) != cudaSuccess || \
             cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, k, Shape<KB>::kThreads, smem) != cudaSuccess)             \
             return -1;                                                                                  \
@@ -323,12 +327,12 @@ int kb_search_topk(const float* psi, const float* phi, const uint8_t* valid, con
     if (Wp % kCH != 0 || buf_elems % kCH != 0 || (align & 15) != 0 || T >= 65536 || NG < 1)
         return (int)cudaErrorInvalidValue;
     const Planes P{psi, phi, valid, T, H, W, Wp, has_masked};
-    const size_t smem = kb_search_topk_smem_bytes(T, buf_elems);
+    const size_t smem = kb_search_topk_smem_bytes(buf_elems);
     const dim3 grid((SW + kTW - 1) / kTW, (SH + kTH - 1) / kTH);
     cudaStream_t s = (cudaStream_t)stream;
 #define KB_LAUNCH(KB)                                                                                 \
     {                                                                                                 \
-        auto k = search_topk_kernel<KB>;                                                              \
+        auto k = T > kb_stage::kRows ? search_topk_kernel<KB, true> : search_topk_kernel<KB, false>;  \
         cudaError_t err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem); \
         if (err != cudaSuccess) return (int)err;                                                      \
         k<<<grid, Shape<KB>::kThreads, smem, s>>>(P, ox, oy, gidx, cand_ok, gstart, lay, off, NG, SH, SW, K_out, buf_elems, \

@@ -1,42 +1,37 @@
-// K3 and K4 for Hopper: the per-candidate top-K search over quantized
-// psi/phi codes.
+// K4 for Hopper: the per-candidate uint8 top-K search, two columns a
+// 32-bit add.
 //
-// Replaces the TPU kernels `_search_kernel_encoded` (K3,
-// kbmod_tpu/ops/search_pallas.py:505) and `_search_kernel_paired` (K4,
-// :916). Both compute K2's function over uint8/uint16 codes (0 = masked):
-// for every window pixel (i, j) and candidate c, in candidate index order,
+// Replaces the TPU kernel `_search_kernel_paired` (K4,
+// kbmod_tpu/ops/search_pallas.py:916). It computes K2's function over
+// uint8 codes (0 = masked): for every window pixel (i, j) and candidate c,
+// in candidate index order,
 //
 //   for t in 0..T-1:  y = oy[c,t] + i,  x = ox[c,t] + j
 //     if 0 <= y < H and 0 <= x < W and psi code > 0 and phi code > 0:
-//       psum += psi code;  fsum += phi code;  obs += 1      (int32)
+//       psum += psi code;  fsum += phi code;  obs += 1      (integers)
 //   psi = scale * psum + (min - scale) * obs   (and phi alike, decoded once)
 //   lh  = phi > 0 ? psi / sqrt(phi) : -1      (IEEE div and sqrt)
 //   rank-insert (gated lh, cand_offset + c) at p = #(top >= new)
 //
-// The codes come interleaved, (T, H, Wp) pairs of (psi, phi): for uint8 a
-// 16-bit word (psi in the low byte), for uint16 a 32-bit word (psi in the
-// low half). Wp is W rounded up to 8; columns past W hold zero pairs.
-//
-// K3 (`kb_search_encoded`): one thread per window pixel, templated on the
-// code width. It serves uint16 stacks and uint8 stacks that K4 and K5 do
-// not take (T > 257 when the grouping plan does not fill).
+// The codes come interleaved, (T, H, Wp) pairs of (psi, phi), a 16-bit
+// word each (psi in the low byte). Wp is W rounded up to 8; columns past W
+// hold zero pairs. K3, which served uint16 codes from this source, is now
+// grouped, in search_topk_encoded_grouped.cu.
 //
 // K4 (`kb_search_paired`): uint8, T <= 257. One thread owns two adjacent
 // output columns and sums their codes as the two 16-bit fields of one
 // 32-bit register, as the TPU kernel does (search_pallas.py:952-956): one
 // add serves two columns. A field sum stays exact while T * 255 <= 65535.
 //
-// What bounds them on the H100: as K2, operations and the load path, not
-// HBM: every (pixel, candidate, time) sample is a bounds test, a 2- or
-// 4-byte load, a validity test and three integer adds, and the compulsory
-// traffic is one read of the codes (2 or 4 bytes a pixel and time). The
-// design is K2's: neighbouring threads own neighbouring columns, so each
+// What bounds it on the H100: as K2, operations and the load path, not
+// HBM: every (pixel, candidate, time) sample is a bounds test, a 2-byte
+// load, a validity test and 1.5 integer adds, and the compulsory traffic is
+// one read of the codes (2 bytes a pixel and time). The design is that of
+// the first K2: neighbouring threads own neighbouring columns, so each
 // (candidate, time) read is one coalesced row segment; the (C, T) offsets
 // are staged in shared memory in batches; kCB candidates accumulate
 // together with time as the outer loop, so one plane's neighbourhood is
 // read kCB times while it is hot in L1/L2; the top-K lives in registers.
-// The codes are a quarter (uint8) or half (uint16) of K2's bytes, and the
-// sums are integer adds.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -52,6 +47,7 @@ using kb_encoded::decode_sum;
 using kb_encoded::gated;
 using kb_encoded::likelihood;
 using kb_encoded::rank_insert;
+using kb_encoded::store_top;
 
 // Stages a batch of candidates' offsets and validity in shared memory.
 __device__ __forceinline__ void stage_batch(int* s_ox, int* s_oy, uint8_t* s_ok, const int* ox,
@@ -73,86 +69,6 @@ __device__ __forceinline__ void init_top(float (&top)[KB], int (&tidx)[KB]) {
         top[k] = -FLT_MAX;
         tidx[k] = -1;
     }
-}
-
-template <int KB>
-__device__ __forceinline__ void store_top(const float (&top)[KB], const int (&tidx)[KB], int K_out,
-                                          int SH, int SW, int i, int j, float* top_lh, int* top_idx) {
-#pragma unroll
-    for (int k = 0; k < KB; ++k) {
-        if (k < K_out) {
-            const size_t o = ((size_t)k * SH + i) * SW + j;
-            top_lh[o] = top[k];
-            top_idx[o] = tidx[k];
-        }
-    }
-}
-
-// K3. PairT is uint16_t (uint8 codes) or uint32_t (uint16 codes).
-template <typename PairT, int BITS, int KB>
-__global__ void __launch_bounds__(kBlock)
-    encoded_kernel(const PairT* __restrict__ pairs, const int* __restrict__ ox,
-                   const int* __restrict__ oy, const uint8_t* __restrict__ cand_ok, int C, int T,
-                   int H, int W, int Wp, int SH, int SW, int K_out, int CS, int cand_offset,
-                   float psi_min, float psi_scale, float phi_min, float phi_scale, float min_obs,
-                   float min_lh, int gate_min_obs, int gate_min_lh, float* __restrict__ top_lh,
-                   int* __restrict__ top_idx) {
-    extern __shared__ int smem[];
-    int* s_ox = smem;
-    int* s_oy = s_ox + CS * T;
-    uint8_t* s_ok = reinterpret_cast<uint8_t*>(s_oy + CS * T);
-    constexpr uint32_t kMask = (1u << BITS) - 1u;
-
-    const int j = blockIdx.x * kBlock + threadIdx.x;
-    const int i = blockIdx.y;
-    const bool active = j < SW;
-    const size_t plane = (size_t)H * Wp;
-    const float psi_d = __fsub_rn(psi_min, psi_scale);
-    const float phi_d = __fsub_rn(phi_min, phi_scale);
-
-    float top[KB];
-    int tidx[KB];
-    init_top(top, tidx);
-
-    for (int c0 = 0; c0 < C; c0 += CS) {
-        const int ncs = min(CS, C - c0);
-        stage_batch(s_ox, s_oy, s_ok, ox, oy, cand_ok, c0, ncs, T);
-        if (!active) continue;
-        for (int cb = 0; cb < ncs; cb += kCB) {
-            int ap[kCB], af[kCB], ao[kCB];
-#pragma unroll
-            for (int u = 0; u < kCB; ++u) ap[u] = af[u] = ao[u] = 0;
-            const PairT* pt = pairs;
-            for (int t = 0; t < T; ++t, pt += plane) {
-#pragma unroll
-                for (int u = 0; u < kCB; ++u) {
-                    if (cb + u < ncs) {
-                        const int y = s_oy[(cb + u) * T + t] + i;
-                        const int x = s_ox[(cb + u) * T + t] + j;
-                        if ((unsigned)y < (unsigned)H && (unsigned)x < (unsigned)W) {
-                            const uint32_t v = pt[(size_t)y * Wp + x];
-                            const int p = (int)(v & kMask), f = (int)(v >> BITS);
-                            const bool both = (p != 0) & (f != 0);
-                            ap[u] += both ? p : 0;
-                            af[u] += both ? f : 0;
-                            ao[u] += both ? 1 : 0;
-                        }
-                    }
-                }
-            }
-#pragma unroll
-            for (int u = 0; u < kCB; ++u) {
-                if (cb + u >= ncs) break;
-                const float obs = (float)ao[u];
-                const float lh = likelihood(decode_sum(ap[u], obs, psi_scale, psi_d),
-                                            decode_sum(af[u], obs, phi_scale, phi_d));
-                const float nv = gated(lh, ao[u], s_ok[cb + u] != 0, min_obs, min_lh, gate_min_obs,
-                                       gate_min_lh);
-                rank_insert<KB, false>(top, tidx, nv, cand_offset + c0 + cb + u);
-            }
-        }
-    }
-    if (active) store_top(top, tidx, K_out, SH, SW, i, j, top_lh, top_idx);
 }
 
 // K4: uint8 pairs as 16-bit words; thread owns columns j0 = 2 * (block
@@ -260,10 +176,10 @@ int allow_smem(Kernel kernel, size_t smem) {
 
 extern "C" {
 
-int kb_search_encoded_cand_batch() { return kCB; }
+int kb_search_paired_cand_batch() { return kCB; }
 
 // Shared memory for CS staged candidates of T offsets each.
-size_t kb_search_encoded_smem_bytes(int CS, int T) {
+size_t kb_search_paired_smem_bytes(int CS, int T) {
     return (size_t)CS * T * 2 * sizeof(int) + (size_t)CS;
 }
 
@@ -280,42 +196,10 @@ size_t kb_search_encoded_smem_bytes(int CS, int T) {
     ox, oy, cand_ok, C, T, H, W, Wp, SH, SW, K_out, CS, cand_offset, psi_min, psi_scale, phi_min,  \
         phi_scale, min_obs, min_lh, gate_min_obs, gate_min_lh, top_lh, top_idx
 
-// K3. bits = 8 (uint8 codes, 16-bit pairs) or 16 (uint16 codes, 32-bit pairs).
-int kb_search_encoded(int bits, KB_ENC_PARAMS) {
-    const size_t smem = kb_search_encoded_smem_bytes(CS, T);
-    cudaStream_t s = (cudaStream_t)stream;
-    const dim3 grid((SW + kBlock - 1) / kBlock, SH);
-#define KB_LAUNCH(KB)                                                                              \
-    {                                                                                              \
-        if (bits == 8) {                                                                           \
-            auto k = encoded_kernel<uint16_t, 8, KB>;                                              \
-            int err = allow_smem(k, smem);                                                    \
-            if (err) return err;                                                                   \
-            k<<<grid, kBlock, smem, s>>>((const uint16_t*)pairs, KB_ENC_ARGS);                     \
-        } else {                                                                                   \
-            auto k = encoded_kernel<uint32_t, 16, KB>;                                             \
-            int err = allow_smem(k, smem);                                                    \
-            if (err) return err;                                                                   \
-            k<<<grid, kBlock, smem, s>>>((const uint32_t*)pairs, KB_ENC_ARGS);                     \
-        }                                                                                          \
-        return (int)cudaGetLastError();                                                            \
-    }
-    if (bits != 8 && bits != 16) return (int)cudaErrorInvalidValue;
-    if (K_out <= 1) KB_LAUNCH(1);
-    if (K_out <= 2) KB_LAUNCH(2);
-    if (K_out <= 4) KB_LAUNCH(4);
-    if (K_out <= 8) KB_LAUNCH(8);
-    if (K_out <= 16) KB_LAUNCH(16);
-    if (K_out <= 32) KB_LAUNCH(32);
-    if (K_out <= 64) KB_LAUNCH(64);
-#undef KB_LAUNCH
-    return (int)cudaErrorInvalidValue;
-}
-
 // K4: uint8 codes, T <= 257.
 int kb_search_paired(KB_ENC_PARAMS) {
     if (T > 257) return (int)cudaErrorInvalidValue;
-    const size_t smem = kb_search_encoded_smem_bytes(CS, T);
+    const size_t smem = kb_search_paired_smem_bytes(CS, T);
     cudaStream_t s = (cudaStream_t)stream;
     const dim3 grid((SW + 2 * kBlock - 1) / (2 * kBlock), SH);
 #define KB_LAUNCH(KB)                                                                              \

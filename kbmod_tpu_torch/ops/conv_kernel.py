@@ -4,25 +4,25 @@
 package's ops/conv_pallas.py:32, entry ``psi_phi_conv_pallas``). On a CUDA
 tensor it launches ``csrc/psi_phi_conv.cu``; on a CPU tensor it runs
 ``psi_phi_conv_plain``, which computes the same function tap by tap in
-plain PyTorch. The kernel is bound by operations (8 per tap per pixel
-against 16 bytes of traffic); its source note says what the design does
-about that.
+plain PyTorch. Both take their taps from one table, :func:`psf_taps`. The
+kernel is bound by instruction issue (8 float32 operations per tap per
+pixel against 16 bytes of traffic); its source note says what the design
+does about that.
 """
 
 import ctypes
 
+import numpy as np
 import torch
 
 from kbmod_tpu_torch.ops import _build
 from kbmod_tpu_torch.ops.convolve import conv_same
 
-# Output tile of one block: TILE_W columns by TILE_H rows.
-TILE_W, TILE_H = 32, 8
-
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "kb_psi_phi_conv": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P], ctypes.c_int),
-    "kb_psi_phi_conv_smem_bytes": ([_I, _I, _I, _I], ctypes.c_size_t),
+    "kb_psi_phi_conv": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P], ctypes.c_int),
+    "kb_psi_phi_conv_smem_bytes": ([_I, _I], ctypes.c_size_t),
+    "kb_psi_phi_conv_blocks_per_sm": ([_I, _I], ctypes.c_int),
 }
 
 
@@ -31,10 +31,12 @@ def _lib():
 
 
 def psf_taps(psf):
-    """(kh*kw + 2,) float32 taps on psf's device: the kernel row-major, then
-    sum(k) and sum(k*k). Kernel and twin share these sums."""
+    """(2 kh kw + 2,) float32 tap table on psf's device: the kernel k
+    row-major, then k * k (each rounded once), then sum(k) and sum(k * k).
+    Kernel and twin take their taps and sums from this table."""
     k = psf.reshape(-1)
-    return torch.cat([k, torch.stack([torch.sum(k), torch.sum(k * k)])])
+    k2 = k * k
+    return torch.cat([k, k2, torch.stack([torch.sum(k), torch.sum(k2)])])
 
 
 def psi_phi_conv_plain(sci, var, psf):
@@ -50,17 +52,17 @@ def psi_phi_conv_plain(sci, var, psf):
     psi_raw = torch.where(valid, sci / var, zero)
     phi_raw = torch.where(valid, 1.0 / var, zero)
     m = valid.to(torch.float32)
-    taps = psf_taps(psf)
-    k = psf.to(torch.float32)
-    k2 = k * k
+    kh, kw = psf.shape
+    n = kh * kw
+    taps = psf_taps(psf.to(torch.float32))
+    k, k2 = taps[:n].reshape(kh, kw), taps[n : 2 * n].reshape(kh, kw)
     apsi = conv_same(psi_raw, k)
     aphi = conv_same(phi_raw, k2)
     am1 = conv_same(m, k)
     am2 = conv_same(m, k2)
-    ntap = k.numel()
     nan = torch.full((), float("nan"), device=sci.device)
-    psi = torch.where(valid, apsi * (taps[ntap] / torch.clamp_min(am1, 1e-24)), nan)
-    phi = torch.where(valid, aphi * (taps[ntap + 1] / torch.clamp_min(am2, 1e-24)), nan)
+    psi = torch.where(valid, apsi * (taps[2 * n] / torch.clamp_min(am1, 1e-24)), nan)
+    phi = torch.where(valid, aphi * (taps[2 * n + 1] / torch.clamp_min(am2, 1e-24)), nan)
     return psi, phi
 
 
@@ -85,7 +87,7 @@ def psi_phi_conv(sci, var, psf):
     N, H, W = sci.shape
     kh, kw = psf.shape
     lib = _lib()
-    if lib.kb_psi_phi_conv_smem_bytes(TILE_W, TILE_H, kh, kw) > _build.MAX_SMEM_BYTES:
+    if lib.kb_psi_phi_conv_smem_bytes(kh, kw) > _build.MAX_SMEM_BYTES:
         raise ValueError(f"psi_phi_conv: PSF {kh}x{kw} too large for one block's shared memory")
     sci = sci.contiguous()
     var = var.contiguous()
@@ -93,8 +95,11 @@ def psi_phi_conv(sci, var, psf):
     psi = torch.empty_like(sci)
     phi = torch.empty_like(sci)
     if N * H * W:
+        # The common PSF sizes take their taps as kernel parameters, which
+        # needs the table in host memory (a copy of 2 kh kw + 2 floats).
+        taps_host = np.ascontiguousarray(taps.cpu().numpy())
         err = lib.kb_psi_phi_conv(
-            sci.data_ptr(), var.data_ptr(), taps.data_ptr(), N, H, W, kh, kw, TILE_W, TILE_H,
+            sci.data_ptr(), var.data_ptr(), taps.data_ptr(), taps_host.ctypes.data, N, H, W, kh, kw,
             psi.data_ptr(), phi.data_ptr(), torch.cuda.current_stream(sci.device).cuda_stream,
         )
         _build.check(err, "psi_phi_conv")

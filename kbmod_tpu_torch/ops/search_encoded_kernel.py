@@ -10,10 +10,14 @@ and the sum rounded on their own, in that order), then ranked as K2 ranks.
 
 - ``search_encoded`` replaces ``_search_kernel_encoded`` (K3,
   kbmod_tpu/ops/search_pallas.py:505): uint16 codes, and uint8 codes that
-  the other two do not take. CUDA source ``csrc/search_topk_encoded.cu``.
+  the other two do not take. It takes the candidates in the groups of
+  ``search_plan.grouped_plan``, as K2 does, and stages each group's windows
+  in shared memory (:func:`k3_staging` lays them out). CUDA source
+  ``csrc/search_topk_encoded_grouped.cu``.
 - ``search_paired`` replaces ``_search_kernel_paired`` (K4, :916): uint8
   codes with T <= 257, two output columns per thread summed as the two
-  16-bit fields of one 32-bit register. Same source.
+  16-bit fields of one 32-bit register, candidates one at a time in index
+  order. CUDA source ``csrc/search_topk_encoded.cu``.
 - ``search_grouped`` replaces ``_search_kernel_paired_grouped`` (K5,
   :1493): uint8 codes, any T, candidates in groups whose rows lie close
   together (``ops/search_plan.py``), one shared-memory window per group and
@@ -21,9 +25,9 @@ and the sum rounded on their own, in that order), then ranked as K2 ranks.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor
 it runs ``search_topk_encoded_shift``, the twin. Exact likelihood ties rank
-by ascending global candidate index whatever order the candidates arrive in
-(K5 and the twin compare (lh, index) explicitly; K3 and K4 see candidates in
-index order).
+by (lh desc, global index asc) in every kernel and in the twin: K3 and K5,
+whose candidates arrive in plan order, compare (lh, index) explicitly; K4
+sees them in index order, where the two rules agree.
 """
 
 import ctypes
@@ -34,16 +38,16 @@ import torch
 from kbmod_tpu_torch.ops import _build
 from kbmod_tpu_torch.ops.psi_phi import _codes_as_int, _f32, interleave_code_pairs
 from kbmod_tpu_torch.ops.search_kernel import FLT_MAX, MAX_K
-from kbmod_tpu_torch.ops.search_plan import GROUP_G, staging_header_bytes, window_layout_cached
+from kbmod_tpu_torch.ops.search_plan import GROUP_G, grouped_plan, staging_header_bytes, window_layout_cached
 
 # uint8 code sums fit a 16-bit field while T * 255 <= 65535.
 PAIRED_MAX_T = 257
-# Dynamic shared memory K3/K4 stage offsets in without opting in to more.
+# Dynamic shared memory K4 stages offsets in without opting in to more.
 _STAGE_BYTES = 48 * 1024
 
 
 def _stage_candidates(C, T, batch):
-    """Candidates K3/K4 stage in shared memory per batch: as many as 48 KB
+    """Candidates K4 stages in shared memory per batch: as many as 48 KB
     holds, a multiple of the kernel's candidate batch, at least one batch."""
     per = 8 * T + 1
     cs = max(batch, (_STAGE_BYTES // per) // batch * batch)
@@ -51,24 +55,42 @@ def _stage_candidates(C, T, batch):
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ENC_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _I, _I, _P, _P, _P]
-_ENC_SIGNATURES = {
-    "kb_search_encoded": ([_I] + _ENC_ARGS, ctypes.c_int),
-    "kb_search_paired": (_ENC_ARGS, ctypes.c_int),
-    "kb_search_encoded_smem_bytes": ([_I, _I], ctypes.c_size_t),
-    "kb_search_encoded_cand_batch": ([], ctypes.c_int),
+_PAIRED_SIGNATURES = {
+    "kb_search_paired": (
+        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _I, _I, _P, _P, _P],
+        ctypes.c_int,
+    ),
+    "kb_search_paired_smem_bytes": ([_I, _I], ctypes.c_size_t),
+    "kb_search_paired_cand_batch": ([], ctypes.c_int),
 }
+_GROUPED_ARGS = [_P] * 8 + [_I] * 8 + [_F] * 6 + [_I, _I, _P, _P, _P]
 _GRP_SIGNATURES = {
-    "kb_search_grouped": ([_P] * 8 + [_I] * 8 + [_F] * 6 + [_I, _I, _P, _P, _P], ctypes.c_int),
+    "kb_search_grouped": (_GROUPED_ARGS, ctypes.c_int),
     "kb_search_grouped_smem_bytes": ([_I, _I], ctypes.c_size_t),
     "kb_search_grouped_tile": ([_I], ctypes.c_int),
     "kb_search_grouped_max_group": ([], ctypes.c_int),
     "kb_search_grouped_blocks_per_sm": ([_I, _I], ctypes.c_int),
 }
+_K3_SIGNATURES = {
+    "kb_search_encoded": ([_I] + _GROUPED_ARGS, ctypes.c_int),
+    "kb_search_encoded_max_group": ([], ctypes.c_int),
+    "kb_search_encoded_smem_bytes": ([_I, _I], ctypes.c_size_t),
+    "kb_search_encoded_tile": ([_I, _I], ctypes.c_int),
+    "kb_search_encoded_max_t": ([_I], ctypes.c_int),
+    "kb_search_encoded_blocks_per_sm": ([_I, _I, _I], ctypes.c_int),
+}
 # K5's block tile (rows, columns), staging chunk in code pairs and the
 # steps its 16-bit fields hold before a flush (csrc/search_topk_grouped.cu).
 K5_TILE_ROWS, K5_TILE_COLS, K5_CHUNK = 4, 256, 8
 _K5_FLUSH = 257
+K5_MAX_T = 65535
+# K3's block tile (rows, columns) and its staging chunk in code pairs by code
+# width (16 bytes), and its most time steps: int32 sums of uint16 codes stay
+# exact up to 32,768 steps, the 16-bit count fields hold 65,535
+# (csrc/search_topk_encoded_grouped.cu).
+K3_TILE_ROWS, K3_TILE_COLS = 8, 128
+K3_CHUNK = {8: 8, 16: 4}
+K3_MAX_T = {8: 65535, 16: 32768}
 
 
 def k5_staging(dxs, dys, x_min, y_min, plan):
@@ -80,18 +102,46 @@ def k5_staging(dxs, dys, x_min, y_min, plan):
     field sums past 257 steps). Raises ValueError when that exceeds a
     block's shared memory."""
     order, starts = (np.asarray(a, dtype=np.int64) for a in plan)
+    T = np.shape(dxs)[1]
+    if T > K5_MAX_T:
+        raise ValueError(f"search_grouped: T={T} above the kernel's {K5_MAX_T}")
     dxs = np.asarray(dxs, dtype=np.int64)[order] + int(x_min)
     dys = np.asarray(dys, dtype=np.int64)[order] + int(y_min)
-    T = dxs.shape[1]
     lay, off, buf_elems = window_layout_cached(
         dxs, dys, starts, tile_rows=K5_TILE_ROWS, tile_cols=K5_TILE_COLS, chunk=K5_CHUNK, extra=1)
     # 32-bit field sums past 257 steps: G members x (psi, phi) x 2 columns
     # a thread, 512 threads, 4 bytes.
     wide = GROUP_G * 4 * 512 * 4 if T > _K5_FLUSH else 0
-    smem = staging_header_bytes(T) + 2 * 2 * buf_elems + wide
+    smem = staging_header_bytes() + 2 * 2 * buf_elems + wide
     if smem > _build.MAX_SMEM_BYTES:
         raise ValueError(f"search_grouped: T={T} windows need {smem} bytes of shared memory")
     return dict(lay=lay, off=off, buf_elems=buf_elems, smem_bytes=smem)
+
+
+def k3_staging(dxs, dys, x_min, y_min, bits):
+    """K3's host plan for (C, T) offsets over codes of ``bits`` (8 or 16):
+    the grouping plan (``search_plan.grouped_plan``, taken whether or not
+    it fills), the window layout of its staged code pairs (16-byte chunks:
+    8 uint8 pairs or 4 uint16 pairs; no extra column, since a thread reads
+    one whole pair) and the shared memory it needs. Returns a dict with
+    ``order``, ``starts``, ``lay``, ``off``, ``buf_elems`` and
+    ``smem_bytes`` (the tables' header and two buffers of 2 or 4 bytes a
+    pair). Raises ValueError past the kernel's T limit or when the windows
+    exceed a block's shared memory."""
+    T = np.shape(dys)[1]
+    if T > K3_MAX_T[bits]:
+        raise ValueError(f"search_encoded: T={T} above the kernel's {K3_MAX_T[bits]} for uint{bits} codes")
+    dxs = np.asarray(dxs, dtype=np.int64)
+    dys = np.asarray(dys, dtype=np.int64)
+    (order, starts), _ = grouped_plan(dys)
+    lay, off, buf_elems = window_layout_cached(
+        dxs[order] + int(x_min), dys[order] + int(y_min), starts,
+        tile_rows=K3_TILE_ROWS, tile_cols=K3_TILE_COLS, chunk=K3_CHUNK[bits],
+    )
+    smem = staging_header_bytes() + 2 * (bits // 4) * buf_elems
+    if smem > _build.MAX_SMEM_BYTES:
+        raise ValueError(f"search_encoded: T={T} windows need {smem} bytes of shared memory")
+    return dict(order=order, starts=starts, lay=lay, off=off, buf_elems=buf_elems, smem_bytes=smem)
 
 
 def search_topk_encoded_shift(
@@ -224,38 +274,66 @@ def _empty(K, SH, SW, dev):
             torch.full((K, SH, SW), -1, dtype=torch.int32, device=dev))
 
 
-def _launch_per_candidate(entry, planes, dxs, dys, min_obs, min_lh, kw, name, extra=()):
-    pairs, ox, oy, cand_ok, em, (C, T, H, W, Wp, SH, SW, K) = _prepare(planes, dxs, dys, kw, name)
+def _launch_grouped(lib, entry, lead, prepared, min_obs, min_lh, kw, st, order, starts, name):
+    """Launch a grouped kernel (K3, K5) with ``_prepare``'s tensors and the
+    host plan ``st`` (its layout) over the plan ``(order, starts)``;
+    ``lead`` are the entry's arguments before the code pairs."""
+    pairs, ox, oy, cand_ok, em, (C, T, H, W, Wp, SH, SW, K) = prepared
     dev = pairs.device
-    if C == 0:
-        return _empty(K, SH, SW, dev)
-    lib = _build.load("search_topk_encoded", _ENC_SIGNATURES)
-    cs = _stage_candidates(C, T, lib.kb_search_encoded_cand_batch())
-    if lib.kb_search_encoded_smem_bytes(cs, T) > _build.MAX_SMEM_BYTES:
-        raise ValueError(f"{name}: T={T} offsets do not fit one block's shared memory")
+    pad = pairs[:, :, W:]
+    if Wp > W and bool((pad.view(torch.int16) if pad.dtype == torch.uint16 else pad).any()):
+        raise ValueError(f"{name}: the code pairs' padding columns must be zero")
+    order_t = torch.as_tensor(order, device=dev)
+    ox, oy = ox[order_t].contiguous(), oy[order_t].contiguous()
+    gidx = (order_t.to(torch.int32) + int(kw.get("cand_offset", 0))).contiguous()
+    cand_ok = cand_ok[order_t].contiguous()
+    gstart = torch.as_tensor(np.append(starts, C).astype(np.int32), device=dev)
+    lay = torch.as_tensor(st["lay"], device=dev)
+    off = torch.as_tensor(st["off"], device=dev)
     top_lh = torch.empty((K, SH, SW), dtype=torch.float32, device=dev)
     top_idx = torch.empty((K, SH, SW), dtype=torch.int32, device=dev)
     err = getattr(lib, entry)(
-        *extra, pairs.data_ptr(), ox.data_ptr(), oy.data_ptr(), cand_ok.data_ptr(),
-        C, T, H, W, Wp, SH, SW, K, cs, int(kw.get("cand_offset", 0)), *em,
-        *_gate_args(min_obs, min_lh, kw), top_lh.data_ptr(), top_idx.data_ptr(),
+        *lead, pairs.data_ptr(), ox.data_ptr(), oy.data_ptr(), gidx.data_ptr(), cand_ok.data_ptr(),
+        gstart.data_ptr(), lay.data_ptr(), off.data_ptr(), len(starts), T, H, Wp, SH, SW, K,
+        st["buf_elems"], *em, *_gate_args(min_obs, min_lh, kw), top_lh.data_ptr(), top_idx.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, name)
     return top_lh, top_idx
 
 
+def _offsets_np(dxs, dys):
+    return (np.asarray(torch.as_tensor(dxs).cpu(), dtype=np.int64),
+            np.asarray(torch.as_tensor(dys).cpu(), dtype=np.int64))
+
+
 def search_encoded(planes, dxs, dys, min_obs, min_lh, **kw):
-    """K3: the per-candidate encoded search over uint8 or uint16 codes.
+    """K3: the grouped encoded search over uint16 codes, or uint8 codes
+    (T up to 32,768 for uint16, 65,535 for uint8).
 
     ``planes`` is an ``EncodedPlanes`` (ops/search.py); dxs, dys (C, T)
-    int offsets; keywords as ``search_topk_encoded_shift`` takes them.
-    CUDA tensors launch the kernel and raise if it cannot; CPU tensors take
-    the twin."""
+    int offsets; keywords as ``search_topk_encoded_shift`` takes them. The
+    candidates go in the groups of ``search_plan.grouped_plan``; the code
+    pairs' padding columns must be zero, as ``interleave_code_pairs`` and
+    the streaming build make them. CUDA tensors launch the kernel and raise
+    if it cannot; CPU tensors take the twin."""
     if planes.psi_codes.device.type == "cpu":
         return _twin(planes, dxs, dys, min_obs, min_lh, kw)
+    prepared = _prepare(planes, dxs, dys, kw, "search_encoded")
+    C, _, _, _, _, SH, SW, K = prepared[-1]
+    if C == 0:
+        return _empty(K, SH, SW, prepared[0].device)
     bits = 16 if planes.psi_codes.dtype == torch.uint16 else 8
-    out = _launch_per_candidate("kb_search_encoded", planes, dxs, dys, min_obs, min_lh, kw, "search_encoded", (bits,))
+    dx_np, dy_np = _offsets_np(dxs, dys)
+    st = k3_staging(dx_np, dy_np, kw["x_min"], kw["y_min"], bits)
+    lib = _build.load("search_topk_encoded_grouped", _K3_SIGNATURES)
+    tile = tuple(lib.kb_search_encoded_tile(bits, a) for a in range(3))
+    if (tile != (K3_TILE_ROWS, K3_TILE_COLS, K3_CHUNK[bits]) or lib.kb_search_encoded_max_group() != GROUP_G
+            or lib.kb_search_encoded_max_t(bits) != K3_MAX_T[bits]
+            or st["smem_bytes"] != lib.kb_search_encoded_smem_bytes(bits, st["buf_elems"])):
+        raise RuntimeError("search_encoded: host and kernel disagree on the tile, group, T limit or shared memory")
+    out = _launch_grouped(lib, "kb_search_encoded", (bits,), prepared, min_obs, min_lh, kw, st,
+                          st["order"], st["starts"], "search_encoded")
     search_encoded.launches += 1
     return out
 
@@ -271,9 +349,25 @@ def search_paired(planes, dxs, dys, min_obs, min_lh, **kw):
         raise ValueError(f"search_paired: needs uint8 codes and T <= {PAIRED_MAX_T}, got {planes.psi_codes.dtype}, T={T}")
     if planes.psi_codes.device.type == "cpu":
         return _twin(planes, dxs, dys, min_obs, min_lh, kw)
-    out = _launch_per_candidate("kb_search_paired", planes, dxs, dys, min_obs, min_lh, kw, "search_paired")
+    pairs, ox, oy, cand_ok, em, (C, T, H, W, Wp, SH, SW, K) = _prepare(planes, dxs, dys, kw, "search_paired")
+    dev = pairs.device
+    if C == 0:
+        return _empty(K, SH, SW, dev)
+    lib = _build.load("search_topk_encoded", _PAIRED_SIGNATURES)
+    cs = _stage_candidates(C, T, lib.kb_search_paired_cand_batch())
+    if lib.kb_search_paired_smem_bytes(cs, T) > _build.MAX_SMEM_BYTES:
+        raise ValueError(f"search_paired: T={T} offsets do not fit one block's shared memory")
+    top_lh = torch.empty((K, SH, SW), dtype=torch.float32, device=dev)
+    top_idx = torch.empty((K, SH, SW), dtype=torch.int32, device=dev)
+    err = lib.kb_search_paired(
+        pairs.data_ptr(), ox.data_ptr(), oy.data_ptr(), cand_ok.data_ptr(),
+        C, T, H, W, Wp, SH, SW, K, cs, int(kw.get("cand_offset", 0)), *em,
+        *_gate_args(min_obs, min_lh, kw), top_lh.data_ptr(), top_idx.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(err, "search_paired")
     search_paired.launches += 1
-    return out
+    return top_lh, top_idx
 
 
 search_paired.launches = 0
@@ -293,10 +387,10 @@ def search_grouped(planes, dxs, dys, min_obs, min_lh, *, plan, **kw):
         raise ValueError(f"search_grouped: needs uint8 codes, got {planes.psi_codes.dtype}")
     if planes.psi_codes.device.type == "cpu":
         return _twin(planes, dxs, dys, min_obs, min_lh, kw)
-    pairs, ox, oy, cand_ok, em, (C, T, H, W, Wp, SH, SW, K) = _prepare(planes, dxs, dys, kw, "search_grouped")
-    dev = pairs.device
+    prepared = _prepare(planes, dxs, dys, kw, "search_grouped")
+    C, T, _, _, _, SH, SW, K = prepared[-1]
     if C == 0:
-        return _empty(K, SH, SW, dev)
+        return _empty(K, SH, SW, prepared[0].device)
     bounds = np.append(starts, C)
     lib = _build.load("search_topk_grouped", _GRP_SIGNATURES)
     G = lib.kb_search_grouped_max_group()
@@ -304,35 +398,16 @@ def search_grouped(planes, dxs, dys, min_obs, min_lh, *, plan, **kw):
         raise ValueError(f"search_grouped: the plan must split all {C} candidates into groups of 1..{G}")
     if sorted(order.tolist()) != list(range(C)):
         raise ValueError("search_grouped: the plan's order must be a permutation of the candidates")
-    if T >= 1 << 16:
-        raise ValueError(f"search_grouped: T={T} above the kernel's 65535")
-    if Wp > W and bool(pairs[:, :, W:].any()):
-        raise ValueError("search_grouped: the code pairs' padding columns must be zero")
-    dx_np = np.asarray(torch.as_tensor(dxs).cpu(), dtype=np.int64)
-    dy_np = np.asarray(torch.as_tensor(dys).cpu(), dtype=np.int64)
+    dx_np, dy_np = _offsets_np(dxs, dys)
     st = k5_staging(dx_np, dy_np, kw["x_min"], kw["y_min"], (order, starts))
     tile = tuple(lib.kb_search_grouped_tile(a) for a in range(3))
     if (tile != (K5_TILE_ROWS, K5_TILE_COLS, K5_CHUNK) or G != GROUP_G
             or st["smem_bytes"] != lib.kb_search_grouped_smem_bytes(T, st["buf_elems"])):
         raise RuntimeError("search_grouped: host and kernel disagree on the tile, group or shared-memory layout")
-    order_t = torch.as_tensor(order, device=dev)
-    ox, oy = ox[order_t].contiguous(), oy[order_t].contiguous()
-    gidx = (order_t.to(torch.int32) + int(kw.get("cand_offset", 0))).contiguous()
-    cand_ok = cand_ok[order_t].contiguous()
-    gstart = torch.as_tensor(bounds.astype(np.int32), device=dev)
-    lay = torch.as_tensor(st["lay"], device=dev)
-    off = torch.as_tensor(st["off"], device=dev)
-    top_lh = torch.empty((K, SH, SW), dtype=torch.float32, device=dev)
-    top_idx = torch.empty((K, SH, SW), dtype=torch.int32, device=dev)
-    err = lib.kb_search_grouped(
-        pairs.data_ptr(), ox.data_ptr(), oy.data_ptr(), gidx.data_ptr(), cand_ok.data_ptr(),
-        gstart.data_ptr(), lay.data_ptr(), off.data_ptr(), len(starts), T, H, Wp, SH, SW, K,
-        st["buf_elems"], *em, *_gate_args(min_obs, min_lh, kw), top_lh.data_ptr(), top_idx.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _build.check(err, "search_grouped")
+    out = _launch_grouped(lib, "kb_search_grouped", (), prepared, min_obs, min_lh, kw, st, order, starts,
+                          "search_grouped")
     search_grouped.launches += 1
-    return top_lh, top_idx
+    return out
 
 
 search_grouped.launches = 0

@@ -30,6 +30,9 @@ MAX_K = 64
 # The kernel's block tile (rows, columns) and staging chunk in pixels
 # (kb_search_topk_tile in csrc/search_topk.cu).
 K2_TILE_ROWS, K2_TILE_COLS, K2_CHUNK = 4, 256, 16
+# The kernel's most time steps: two rows' counts share a 32-bit register as
+# 16-bit fields.
+K2_MAX_T = 65535
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -37,7 +40,7 @@ _SIGNATURES = {
         [_P] * 10 + [_I] * 9 + [_F, _F, _I, _I, _I, _P, _P, _P],
         ctypes.c_int,
     ),
-    "kb_search_topk_smem_bytes": ([_I, _I], ctypes.c_size_t),
+    "kb_search_topk_smem_bytes": ([_I], ctypes.c_size_t),
     "kb_search_topk_tile": ([_I], ctypes.c_int),
     "kb_search_topk_max_group": ([], ctypes.c_int),
     "kb_search_topk_blocks_per_sm": ([_I, _I], ctypes.c_int),
@@ -133,19 +136,22 @@ def k2_staging(dxs, dys, x_min, y_min):
     ``order[starts[g]:starts[g + 1]]``, 1..8 candidates), ``lay`` (NG, T,
     5) and ``off`` (NG, T, 8) (``search_plan.window_layout``),
     ``buf_elems`` (pixels of one staging buffer) and ``smem_bytes`` (the
-    header of offsets and layout, plus two buffers of 9 bytes a pixel:
-    psi, phi and validity). Raises ValueError when that exceeds a block's
-    shared memory.
+    header of offsets and layout, which does not grow with T, plus two
+    buffers of 9 bytes a pixel: psi, phi and validity). Raises ValueError
+    past the kernel's T limit or when the windows exceed a block's shared
+    memory.
     """
     dxs = np.asarray(dxs, dtype=np.int64)
     dys = np.asarray(dys, dtype=np.int64)
     C, T = dys.shape
+    if T > K2_MAX_T:
+        raise ValueError(f"search_topk: T={T} above the kernel's {K2_MAX_T}")
     (order, starts), _ = grouped_plan(dys)
     lay, off, buf_elems = window_layout_cached(
         dxs[order] + int(x_min), dys[order] + int(y_min), starts,
         tile_rows=K2_TILE_ROWS, tile_cols=K2_TILE_COLS, chunk=K2_CHUNK,
     )
-    smem = staging_header_bytes(T) + 2 * 9 * buf_elems
+    smem = staging_header_bytes() + 2 * 9 * buf_elems
     if smem > _build.MAX_SMEM_BYTES:
         raise ValueError(f"search_topk: T={T} windows need {smem} bytes of shared memory")
     return dict(order=order, starts=starts, lay=lay, off=off, buf_elems=buf_elems, smem_bytes=smem)
@@ -206,8 +212,6 @@ def search_topk(
         raise ValueError(f"search_topk: offsets must be (C, T) = ({C}, {T})")
     if psi.dtype != torch.float32 or phi.dtype != torch.float32:
         raise ValueError("search_topk: psi and phi must be float32")
-    if T >= 1 << 16:
-        raise ValueError(f"search_topk: T={T} above the kernel's 65535")
     top_lh = torch.empty((K, SH, SW), dtype=torch.float32, device=dev)
     top_idx = torch.empty((K, SH, SW), dtype=torch.int32, device=dev)
     if C == 0:
@@ -220,7 +224,7 @@ def search_topk(
     lib = _lib()
     tile = tuple(lib.kb_search_topk_tile(a) for a in range(3))
     if (tile != (K2_TILE_ROWS, K2_TILE_COLS, K2_CHUNK) or lib.kb_search_topk_max_group() != GROUP_G
-            or st["smem_bytes"] != lib.kb_search_topk_smem_bytes(T, st["buf_elems"])):
+            or st["smem_bytes"] != lib.kb_search_topk_smem_bytes(st["buf_elems"])):
         raise RuntimeError("search_topk: host and kernel disagree on the tile, group or shared-memory layout")
     (psi_p, phi_p, valid_p), Wp = _padded_planes(
         psi, phi, valid.to(device=dev, dtype=torch.uint8) if has_masked else None, has_masked)

@@ -14,7 +14,7 @@ in PyTorch on the maps' device.
   packs consecutive ones into groups of at most G whose per-time rows lie
   within S of each other; :func:`_plan_groups_uniform` groups candidates
   whose per-time rows are identical; :func:`grouped_plan` picks between
-  them. Kernels K2 and K5 search a group at a time.
+  them. Kernels K2, K3 and K5 search a group at a time.
 - :func:`window_layout` lays out, for the grouped kernels, the windows a
   block stages in shared memory for each (group, time step).
 """
@@ -25,9 +25,12 @@ import numpy as np
 import torch
 
 FLT_MAX = float(np.finfo(np.float32).max)
-# Group size and row spread of the grouped kernels' plan (K2, K5).
+# Group size and row spread of the grouped kernels' plan (K2, K3, K5).
 GROUP_G = 8
 GROUP_S = 8
+# Time steps of a group's tables a grouped kernel holds in shared memory at
+# once (kb_stage::kRows in csrc/stage_window.cuh).
+STAGE_ROWS = 64
 
 _DEDUP_CACHE = {}
 _PLAN_CACHE = {}
@@ -215,7 +218,7 @@ def _plan_groups_cached(dys_np, G, S, max_entries=8, uniform=False):
 
 
 def grouped_plan(dys_np, G=GROUP_G, S=GROUP_S):
-    """The grouping plan of the grouped kernels (K2, K5) and whether it
+    """The grouping plan of the grouped kernels (K2, K3, K5) and whether it
     fills.
 
     The spread plan fills when its slots (groups x G) stay within max(1.6 C,
@@ -238,11 +241,13 @@ def _round_up(x, m):
     return -(-x // m) * m
 
 
-def staging_header_bytes(T, G=GROUP_G):
-    """Shared memory a grouped kernel (K2, K5) keeps for a group's tables
-    over T steps: its offsets (2 G ints a step), layout rows (5) and member
-    offsets (G), rounded up to 16 bytes."""
-    return _round_up((3 * G + 5) * T * 4, 16)
+def staging_header_bytes():
+    """Shared memory a grouped kernel (K2, K3, K5) keeps for a group's
+    tables: its offsets (2 G ints a step), layout rows (5) and member
+    offsets (G) for STAGE_ROWS time steps at a time, rounded up to 16
+    bytes. It does not depend on T: the kernels reload the tables as the
+    steps go by (csrc/stage_window.cuh)."""
+    return _round_up((3 * GROUP_G + 5) * STAGE_ROWS * 4, 16)
 
 
 def window_layout_cached(ox, oy, starts, max_entries=8, **kw):

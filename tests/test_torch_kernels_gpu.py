@@ -7,11 +7,12 @@ without the conftest:
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py -q
 
-Tolerances: K1 to rtol = atol = 1e-5 with equal NaN masks (kernel and
-twin take the same rounded steps in the same order: bit equality is
-expected); K2-K5 indices equal and lh bit-equal (the same float adds in
-the same order, or the same integer sums and the decode rounded step by
-step, IEEE sqrt and division on both sides); K6 exact int32 equality.
+Tolerances: none. K1 bit-equal with equal NaN masks (kernel and twin take
+the same rounded steps in the same order; the kernel's fused mask terms
+round once where the twin's exact product and add do); K2-K5 indices equal
+and lh bit-equal (the same float adds in the same order, or the same integer
+sums and the decode rounded step by step, IEEE sqrt and division on both
+sides); K6 exact int32 equality.
 """
 
 import numpy as np
@@ -23,6 +24,7 @@ from kbmod_tpu_torch.ops import conv_kernel, exactrow_kernel, search_encoded_ker
 from kbmod_tpu_torch.ops.search import EncodedPlanes, trajectory_offsets
 from kbmod_tpu_torch.ops.search_encoded import search_topk_encoded
 from kbmod_tpu_torch.ops import search_plan
+from kbmod_tpu_torch.ops.psi_phi import code_pair_views
 from kbmod_tpu_torch.ops.search_plan import _plan_groups
 
 pytestmark = pytest.mark.gpu
@@ -45,24 +47,50 @@ def _stack(dev, T, H, W, seed, masked=0.04):
     return torch.as_tensor(sci, device=dev), torch.as_tensor(var, device=dev)
 
 
-@pytest.mark.parametrize("psf", ["s1.0", "s1.4", "s2.0", "1x1", "3x5"])
-@pytest.mark.parametrize("shape", [(3, 70, 45), (1, 33, 129)])
+def _psf(name):
+    """s<sigma>: a Gaussian PSF (sigma 1.4: 9 x 9, 2.5: 15 x 15, 3.5: 21 x 21,
+    the last past the templated sizes); AxB: random taps of both signs."""
+    if name.startswith("s"):
+        return PSF.make_gaussian_kernel(float(name[1:]))
+    kh, kw = (int(v) for v in name.split("x"))
+    return np.random.default_rng(kh * kw).uniform(-0.1, 1, (kh, kw)).astype(np.float32)
+
+
+def _assert_k1_equal(got, ref):
+    """Bit-equal: NaN masks equal and every finite value equal."""
+    for g, r in zip(got, ref):
+        nan = torch.isnan(r)
+        assert torch.equal(torch.isnan(g), nan)
+        assert torch.equal(g[~nan], r[~nan])
+
+
+@pytest.mark.parametrize("psf", ["s1.0", "s1.4", "s2.0", "s2.5", "s3.5", "1x1", "3x5", "4x4"])
+@pytest.mark.parametrize("shape", [(3, 70, 45), (1, 33, 129), (2, 37, 130)])
 def test_k1_matches_twin(dev, psf, shape):
     sci, var = _stack(dev, *shape, seed=8)
-    if psf.startswith("s"):
-        k = PSF.make_gaussian_kernel(float(psf[1:]))
-    elif psf == "1x1":
-        k = np.ones((1, 1), np.float32)
-    else:
-        k = np.random.default_rng(2).uniform(0, 1, (3, 5)).astype(np.float32)
-    k = torch.as_tensor(k, device=dev)
+    k = torch.as_tensor(_psf(psf), device=dev)
     launches = conv_kernel.psi_phi_conv.launches
     got = conv_kernel.psi_phi_conv(sci, var, k)
     ref = conv_kernel.psi_phi_conv_plain(sci, var, k)
     assert conv_kernel.psi_phi_conv.launches == launches + 1
-    for g, r in zip(got, ref):
-        assert torch.equal(torch.isnan(g), torch.isnan(r))
-        torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-5, equal_nan=True)
+    _assert_k1_equal(got, ref)
+
+
+@pytest.mark.parametrize("psf", ["s1.4", "s2.5", "3x5"])
+def test_k1_masks_on_tile_edges_and_all_masked(dev, psf):
+    """Masked rows and columns on the 64 x 16 tile's edges and the 32 x 8
+    generic tile's, a masked 4-output group, then an image masked whole."""
+    sci, var = _stack(dev, 2, 50, 150, seed=3, masked=0.01)
+    for c in (0, 31, 32, 63, 64, 65, 127, 128, 149):
+        sci[0, :, c] = float("nan")
+    for r in (0, 7, 8, 15, 16, 31, 32, 49):
+        var[1, r, :] = 0.0
+    sci[1, 20:24, 40:44] = float("nan")
+    k = torch.as_tensor(_psf(psf), device=dev)
+    _assert_k1_equal(conv_kernel.psi_phi_conv(sci, var, k), conv_kernel.psi_phi_conv_plain(sci, var, k))
+    sci[:] = float("nan")
+    psi, phi = conv_kernel.psi_phi_conv(sci, var, k)
+    assert bool(torch.isnan(psi).all()) and bool(torch.isnan(phi).all())
 
 
 def _search_inputs(dev, T=7, H=45, W=61, C=23, seed=3):
@@ -221,7 +249,8 @@ ENC_CASES = {
 @pytest.mark.parametrize("name", sorted(ENC_CASES))
 @pytest.mark.parametrize(
     "kernel,bits,T",
-    [("K3", 16, 7), ("K3", 8, 260), ("K4", 8, 7), ("K5", 8, 7), ("K5", 8, 257), ("K5", 8, 258), ("K5", 8, 300)],
+    [("K3", 16, 7), ("K3", 16, 300), ("K3", 8, 260), ("K4", 8, 7), ("K5", 8, 7), ("K5", 8, 257), ("K5", 8, 258),
+     ("K5", 8, 300)],
 )
 def test_encoded_kernels_match_twin(dev, kernel, bits, T, name):
     planes, dxs, dys = _encoded_inputs(dev, T, bits)
@@ -263,6 +292,99 @@ def test_k5_odd_shifts_and_spread(dev):
             planes.psi_codes, planes.phi_codes, dx, dy, 2.0, 0.0, planes.em, **kw
         )
         assert torch.equal(got[1], ref[1]) and torch.equal(got[0], ref[0])
+
+
+def _k3_grouped_inputs(dev, bits, T=9, H=23, W=301, C=29, vx=8.0, dup=11, seed=21):
+    """Codes and candidates whose rows move little, so the plan makes real
+    groups; C not a multiple of 8; candidate 1 copied ``dup`` times, so its
+    exact ties span two groups."""
+    rng = np.random.default_rng(seed)
+    dtype = np.uint8 if bits == 8 else np.uint16
+    psi = rng.integers(1, 1 << bits, (T, H, W)).astype(dtype)
+    phi = rng.integers(1, 1 << bits, (T, H, W)).astype(dtype)
+    psi[rng.uniform(size=psi.shape) < 0.05] = 0
+    phi[rng.uniform(size=phi.shape) < 0.05] = 0
+    vxs = rng.uniform(-vx, vx, C).astype(np.float32)
+    vys = rng.uniform(-1.5, 1.5, C).astype(np.float32)
+    vxs[C - dup :], vys[C - dup :] = vxs[1], vys[1]
+    dxs, dys = trajectory_offsets(vxs, vys, np.linspace(0.0, 2.0, T))
+    em = EM if bits == 8 else np.array([-6.0, 12.0 / 65534, 0.1, 4.0 / 65534], np.float32)
+    planes = EncodedPlanes(torch.as_tensor(psi, device=dev), torch.as_tensor(phi, device=dev), em)
+    return planes, dxs, dys
+
+
+K3_GROUPED_CASES = {
+    "groups": dict(k_results=8),
+    "ties_across_groups": dict(k_results=32),
+    "k64": dict(k_results=64, gate_min_obs=False),
+    "wide_spread": dict(k_results=8, vx=300.0),
+    "padding": dict(k_results=8, pad=5),
+    "negative_origins": dict(k_results=6, x_min=-37, x_max=250, y_min=-11, y_max=20),
+    "far_right": dict(k_results=4, x_min=150, x_max=330, y_min=3, y_max=30),
+}
+
+
+@pytest.mark.parametrize("name", sorted(K3_GROUPED_CASES))
+@pytest.mark.parametrize("bits", [16, 8])
+def test_k3_grouped_cases_match_twin(dev, bits, name):
+    kw = dict(K3_GROUPED_CASES[name])
+    planes, dxs, dys = _k3_grouped_inputs(dev, bits, vx=kw.pop("vx", 8.0))
+    pad = kw.pop("pad", 0)
+    T, H, W = planes.shape
+    kw = dict(dict(x_min=0, x_max=W, y_min=0, y_max=H), **kw)
+    plan, _ = search_plan.grouped_plan(dys)
+    assert len(plan[1]) < len(dxs), "the plan made no group of two"
+    if name == "wide_spread":
+        lay = search_encoded_kernel.k3_staging(dxs, dys, 0, 0, bits)["lay"]
+        assert (lay[..., 0] > 1).any(), "no step staged one slab per member"
+    if pad:
+        dxs, dys = np.concatenate([dxs, dxs[:pad] + 1]), np.concatenate([dys, dys[:pad] - 1])
+        kw["cand_valid"] = torch.tensor([True] * (len(dxs) - pad) + [False] * pad, device=dev)
+    dx, dy = torch.as_tensor(dxs, device=dev), torch.as_tensor(dys, device=dev)
+    launches = search_encoded_kernel.search_encoded.launches
+    got = search_encoded_kernel.search_encoded(planes, dx, dy, 2.0, 0.0, **kw)
+    assert search_encoded_kernel.search_encoded.launches == launches + 1
+    ref = search_encoded_kernel.search_topk_encoded_shift(
+        planes.psi_codes, planes.phi_codes, dx, dy, 2.0, 0.0, planes.em, **kw
+    )
+    assert torch.equal(got[1], ref[1]) and torch.equal(got[0], ref[0])
+
+
+@pytest.mark.parametrize("kernel,T", [("K2", 1000), ("K5", 1500), ("K3", 1000)])
+def test_long_stacks_match_twin(dev, kernel, T):
+    """Past the T at which the grouped kernels' tables used to outgrow
+    shared memory: the tables are reloaded every 63 steps."""
+    if kernel == "K2":
+        psi, phi, valid, dxs, dys = _search_inputs(dev, T=T, H=20, W=40)
+        kw = dict(x_min=-3, x_max=37, y_min=0, y_max=20, k_results=8)
+        args = (psi, phi, valid, dxs, dys, float(T // 3), 0.0)
+        got = search_kernel.search_topk(*args, **kw)
+        ref = search_kernel.search_topk_shift(*args, **kw)
+    else:
+        planes, dxs, dys = _encoded_inputs(dev, T, 8 if kernel == "K5" else 16, H=20, W=40)
+        kw = dict(x_min=-3, x_max=37, y_min=0, y_max=20, k_results=8)
+        dx, dy = torch.as_tensor(dxs, device=dev), torch.as_tensor(dys, device=dev)
+        if kernel == "K5":
+            got = search_encoded_kernel.search_grouped(planes, dx, dy, float(T // 3), 0.0,
+                                                       plan=search_plan.grouped_plan(dys)[0], **kw)
+        else:
+            got = search_encoded_kernel.search_encoded(planes, dx, dy, float(T // 3), 0.0, **kw)
+        ref = search_encoded_kernel.search_topk_encoded_shift(
+            planes.psi_codes, planes.phi_codes, dx, dy, float(T // 3), 0.0, planes.em, **kw
+        )
+    assert torch.equal(got[1], ref[1]) and torch.equal(got[0], ref[0])
+
+
+@pytest.mark.parametrize("bits", [16, 8])
+def test_k3_raises_past_its_t_limit(dev, bits):
+    T = search_encoded_kernel.K3_MAX_T[bits] + 1
+    dtype = torch.uint16 if bits == 16 else torch.uint8
+    pairs = torch.zeros((T, 2, 8, 2), dtype=dtype, device=dev)
+    planes = EncodedPlanes(*code_pair_views(pairs, 8), EM, pairs)
+    zeros = torch.zeros((1, T), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="above the kernel"):
+        search_encoded_kernel.search_encoded(planes, zeros, zeros, 0.0, 0.0, x_min=0, x_max=8, y_min=0, y_max=2,
+                                             k_results=1)
 
 
 K6_DRAWS = ["script", "wrap"]
