@@ -64,7 +64,8 @@ SOURCES = ["psi_phi_conv", "search_topk", "search_topk_encoded", "search_topk_gr
            "exactrow_microbench"]
 # Sources whose kernels were redesigned for the card: their ptxas register
 # and spill lines are printed on their own.
-REPORTED = ("psi_phi_conv", "search_topk", "search_topk_grouped", "search_topk_encoded_grouped", "exactrow_microbench")
+REPORTED = ("psi_phi_conv", "search_topk", "search_topk_encoded", "search_topk_grouped", "search_topk_encoded_grouped",
+            "exactrow_microbench")
 # The group count of the midscale search's uniform plan: K6 is timed there too.
 K6_MIDSCALE_NG = 3015
 # em of the JAX package's midscale_kernel benchmark (bench.py:176-178).
@@ -315,12 +316,13 @@ def _planes(psi, phi, em, dev):
 
 
 # (kernel, code bits, T, H, W, C): K3 on uint16 and on uint8 past K4's T
-# limit, K4, K5 at the main path's T, at the 16-bit field limit (257) and
-# past it.
+# limit, K4 at a short T and at its 16-bit field limit (257), K5 at the
+# main path's T, at the 16-bit field limit and past it.
 ENCODED_CONFIGS = [
     ("K3", 16, 12, 300, 257, 97),
     ("K3", 8, 260, 70, 83, 20),
     ("K4", 8, 12, 300, 257, 97),
+    ("K4", 8, 257, 70, 83, 20),
     ("K5", 8, 64, 150, 257, 97),
     ("K5", 8, 257, 70, 83, 20),
     ("K5", 8, 258, 70, 83, 20),
@@ -541,7 +543,7 @@ def time_k6(dev):
                 f"{ms * 1e6 / slots:.2f} ns/cand-slot, bound {bound_ms:.4f} ms ({bound_by}), twin {plain_ms:.1f} ms")
         log(f"K6 timed at NG={ng}; clocks (sm, max sm, power, temperature): {clocks()}")
     lib = _build.load("exactrow_microbench", exactrow_kernel._SIGNATURES)
-    log("K6 blocks per SM: " + ", ".join(f"{m} {lib.kb_exactrow_blocks_per_sm(ord(m), 512)}" for m in MODES))
+    log("K6 blocks per SM: " + ", ".join(f"{m} {lib.kb_exactrow_blocks_per_sm(ord(m))}" for m in MODES))
     return res
 
 
@@ -889,6 +891,7 @@ def time_encoded(kernel, planes, times, cands, bounds, K, min_obs, min_lh, dev):
     """One encoded kernel at a main-path search's shapes and settings
     (gate on min_lh, as those searches run): median of 3 launches by CUDA
     events, the twin once, the bound."""
+    from kbmod_tpu_torch.ops import _build
     from kbmod_tpu_torch.ops import search_encoded_kernel as ek
     from kbmod_tpu_torch.ops.search import trajectory_offsets
     from kbmod_tpu_torch.ops.search_encoded import encoded_route
@@ -911,25 +914,27 @@ def time_encoded(kernel, planes, times, cands, bounds, K, min_obs, min_lh, dev):
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     err, _ = _assert_k2_equal("main-path shapes", got, ref, kernel)
-    if kernel in ("K3", "K5"):
-        from kbmod_tpu_torch.ops import _build
-
-        SH, SW = bounds["y_max"] - bounds["y_min"], bounds["x_max"] - bounds["x_min"]
-        if kernel == "K5":
-            lib = _build.load("search_topk_grouped", ek._GRP_SIGNATURES)
-            st = ek.k5_staging(dxs, dys, bounds["x_min"], bounds["y_min"], extra["plan"])
-            ngroups, bpsm = len(extra["plan"][1]), lib.kb_search_grouped_blocks_per_sm(K, st["smem_bytes"])
-            px, tile = 2, (ek.K5_TILE_ROWS, ek.K5_TILE_COLS)
-        else:
-            lib = _build.load("search_topk_encoded_grouped", ek._K3_SIGNATURES)
-            bits = 8 * planes.psi_codes.element_size()
-            st = ek.k3_staging(dxs, dys, bounds["x_min"], bounds["y_min"], bits)
-            ngroups, bpsm = len(st["starts"]), lib.kb_search_encoded_blocks_per_sm(bits, K, st["smem_bytes"])
-            px, tile = bits // 4, (ek.K3_TILE_ROWS, ek.K3_TILE_COLS)
-        log(f"{kernel} (K={K}): {ngroups} groups, {st['smem_bytes']} bytes of shared memory, {bpsm} blocks per SM; "
-            + _staged_traffic(st["lay"], px, SH, SW, *tile, ms))
-    (bound_ms, bound_by), n_samples = _encoded_bound(planes, dx_t, dy_t, bounds, K)
     SH, SW = bounds["y_max"] - bounds["y_min"], bounds["x_max"] - bounds["x_min"]
+    groups = "groups"
+    if kernel == "K4":
+        lib = _build.load("search_topk_encoded", ek._PAIRED_SIGNATURES)
+        st = ek.k4_staging(dxs, dys, bounds["x_min"], bounds["y_min"])
+        ngroups, bpsm = len(st["starts"]), lib.kb_search_paired_blocks_per_sm(K, st["smem_bytes"])
+        px, tile, groups = 2, (ek.K4_TILE_ROWS, ek.K4_TILE_COLS), "batches in index order"
+    elif kernel == "K5":
+        lib = _build.load("search_topk_grouped", ek._GRP_SIGNATURES)
+        st = ek.k5_staging(dxs, dys, bounds["x_min"], bounds["y_min"], extra["plan"])
+        ngroups, bpsm = len(extra["plan"][1]), lib.kb_search_grouped_blocks_per_sm(K, st["smem_bytes"])
+        px, tile = 2, (ek.K5_TILE_ROWS, ek.K5_TILE_COLS)
+    else:
+        lib = _build.load("search_topk_encoded_grouped", ek._K3_SIGNATURES)
+        bits = 8 * planes.psi_codes.element_size()
+        st = ek.k3_staging(dxs, dys, bounds["x_min"], bounds["y_min"], bits)
+        ngroups, bpsm = len(st["starts"]), lib.kb_search_encoded_blocks_per_sm(bits, K, st["smem_bytes"])
+        px, tile = bits // 4, (ek.K3_TILE_ROWS, ek.K3_TILE_COLS)
+    log(f"{kernel} (K={K}): {ngroups} {groups}, {st['smem_bytes']} bytes of shared memory, {bpsm} blocks per SM; "
+        + _staged_traffic(st["lay"], px, SH, SW, *tile, ms))
+    (bound_ms, bound_by), n_samples = _encoded_bound(planes, dx_t, dy_t, bounds, K)
     return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms, bound_by=bound_by, err=err,
                 shape=f"u{8 * planes.psi_codes.element_size()} T={T} {SH}x{SW} window, C={len(cands)}, "
                       f"K={K}, {n_samples} valid samples",

@@ -1,5 +1,6 @@
 // Pieces shared by the encoded search kernels (K4 in search_topk_encoded.cu,
-// K5 in search_topk_grouped.cu, K3 in search_topk_encoded_grouped.cu): the
+// K5 in search_topk_grouped.cu, K3 in search_topk_encoded_grouped.cu) and K2
+// (search_topk.cu): the
 // decode of integer code sums, the likelihood, the top-K rank-insert, the
 // top-K map's reads and writes, and the launch helpers.
 // Every step
@@ -101,13 +102,14 @@ struct Decode {
 
 // Insert a candidate's decoded sums (ps, fs over obs samples; ok false for
 // padding; gi its global index) into a pixel's top list by (lh desc, index
-// asc); psi_d and phi_d are min - scale, rounded once.
-template <int KB>
+// asc), or, without `by_index`, for candidates that arrive in index order
+// (rank_insert); psi_d and phi_d are min - scale, rounded once.
+template <int KB, bool by_index = true>
 __device__ __forceinline__ void insert_member(float (&top)[KB], int (&tidx)[KB], int ps, int fs, int obs, bool ok,
                                               int gi, const Decode& D, float psi_d, float phi_d) {
     const float fobs = (float)obs;
     const float lh = likelihood(decode_sum(ps, fobs, D.psi_scale, psi_d), decode_sum(fs, fobs, D.phi_scale, phi_d));
-    rank_insert<KB, true>(top, tidx, gated(lh, obs, ok, D.min_obs, D.min_lh, D.gate_min_obs, D.gate_min_lh), gi);
+    rank_insert<KB, by_index>(top, tidx, gated(lh, obs, ok, D.min_obs, D.min_lh, D.gate_min_obs, D.gate_min_lh), gi);
 }
 
 // Resident blocks per SM of `kernel` at NT threads a block with smem bytes

@@ -1,5 +1,5 @@
-// K4 for Hopper: the per-candidate uint8 top-K search, two columns a
-// 32-bit add.
+// K4 for Hopper: the uint8 top-K search over candidates that do not group,
+// two columns a 32-bit add.
 //
 // Replaces the TPU kernel `_search_kernel_paired` (K4,
 // kbmod_tpu/ops/search_pallas.py:916). It computes K2's function over
@@ -15,208 +15,243 @@
 //
 // The codes come interleaved, (T, H, Wp) pairs of (psi, phi), a 16-bit
 // word each (psi in the low byte). Wp is W rounded up to 8; columns past W
-// hold zero pairs. K3, which served uint16 codes from this source, is now
-// grouped, in search_topk_encoded_grouped.cu.
+// hold zero pairs. T <= 257: one thread sums two adjacent columns as the two
+// 16-bit fields of one 32-bit register, as the TPU kernel does
+// (search_pallas.py:952-956), exact while T * 255 <= 65535.
 //
-// K4 (`kb_search_paired`): uint8, T <= 257. One thread owns two adjacent
-// output columns and sums their codes as the two 16-bit fields of one
-// 32-bit register, as the TPU kernel does (search_pallas.py:952-956): one
-// add serves two columns. A field sum stays exact while T * 255 <= 65535.
+// The dispatcher sends a search here when its candidates do NOT group:
+// uint8 codes whose grouping plan does not fill (K5 takes the others).
+// What bounds it on the H100: int32 operations by the card's rates (1.5
+// adds a sample), but with no two members sharing a window every (pixel,
+// candidate, time) sample is also 2 bytes moved from L2 to the SM. The first
+// design (a block one row of 256 columns, a synchronous global load a
+// sample whose address hung on two shared loads, a row and a column bounds
+// test a sample, two 2-byte loads and a join for every odd shift, nothing in
+// flight while a step summed) took 4.956 ms against a 0.188 ms bound on the
+// main path's sparse uint8 band (T = 64, 256 x 2048, 66 candidates, K = 8;
+// NVIDIA H100 80GB HBM3, 700 W; PERF.md). This design takes what K5 and K3
+// learned (csrc/search_topk_grouped.cu, search_topk_encoded_grouped.cu):
 //
-// What bounds it on the H100: as K2, operations and the load path, not
-// HBM: every (pixel, candidate, time) sample is a bounds test, a 2-byte
-// load, a validity test and 1.5 integer adds, and the compulsory traffic is
-// one read of the codes (2 bytes a pixel and time). The design is that of
-// the first K2: neighbouring threads own neighbouring columns, so each
-// (candidate, time) read is one coalesced row segment; the (C, T) offsets
-// are staged in shared memory in batches; kCB candidates accumulate
-// together with time as the outer loop, so one plane's neighbourhood is
-// read kCB times while it is hot in L1/L2; the top-K lives in registers.
+// - the candidates in index order, in batches of 8 (no plan): batch b holds
+//   candidates 8b .. 8b + 7, so every insert sees them in index order and
+//   rank_insert<KB, false> keeps the twin's tie order;
+// - a block owns 4 rows x 256 columns, a thread one word (two columns) of
+//   two rows, as K3 found best; for each (batch, t) the block stages every
+//   member's window with cp.async 16-byte copies (csrc/stage_window.cuh; the
+//   host's layout, k4_staging in ops/search_encoded_kernel.py, gives one
+//   slab per member, or one box where the windows overlap enough),
+//   double-buffered so the copy of t + 1 runs while t is summed, one barrier
+//   a step; chunks outside the image arrive as zero codes, so the loop has
+//   no bounds test;
+// - an odd column shift joins two adjacent words with a funnel shift, as K5;
+// - 48 sum registers a thread (8 members x 2 rows x psi, phi, counts):
+//   three 256-thread blocks (24 warps) an SM for K <= 8;
+// - the group's tables sit in shared memory 64 steps at a time
+//   (stage_window.cuh), reloaded every 63 steps past T = 64;
+// - the top-K lives in the output map, read and written once a batch. A
+//   version that kept each thread's four lists in registers for the block's
+//   life ran 36% slower at K = 8 and 14% at K = 32: the lists take the
+//   registers that buy blocks an SM.
+//
+// What the card showed (PERF.md): on the main path's sparse band the
+// time hardly moves with the shape around the loop: one row a thread in
+// 512-thread blocks, four blocks an SM, two batches a sweep over the steps
+// (to reuse each plane in L2) and three steps of copies in flight all came
+// within 15% of this design, none faster. Every sample still costs 2 staged
+// bytes, with no reuse to win.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "encoded_common.cuh"
+#include "stage_window.cuh"
 
 namespace {
 
-constexpr int kBlock = 128;  // threads per block
-constexpr int kCB = 8;       // candidates accumulated together
-
-using kb_encoded::decode_sum;
-using kb_encoded::gated;
-using kb_encoded::likelihood;
-using kb_encoded::rank_insert;
+using kb_encoded::Decode;
+using kb_encoded::insert_member;
+using kb_encoded::launch;
+using kb_encoded::load_top;
+using kb_encoded::occupancy;
 using kb_encoded::store_top;
+using kb_stage::header_bytes;
+using kb_stage::kG;
+using kb_stage::kLay;
 
-// Stages a batch of candidates' offsets and validity in shared memory.
-__device__ __forceinline__ void stage_batch(int* s_ox, int* s_oy, uint8_t* s_ok, const int* ox,
-                                            const int* oy, const uint8_t* cand_ok, int c0, int ncs,
-                                            int T) {
-    __syncthreads();
-    for (int e = threadIdx.x; e < ncs * T; e += kBlock) {
-        s_ox[e] = ox[(size_t)c0 * T + e];
-        s_oy[e] = oy[(size_t)c0 * T + e];
-    }
-    for (int e = threadIdx.x; e < ncs; e += kBlock) s_ok[e] = cand_ok[c0 + e];
-    __syncthreads();
-}
+constexpr int kThreads = 256;
+constexpr int kWX = 128;              // word columns per block: 256 pixel columns
+constexpr int kR = 2;                 // window rows a thread
+constexpr int kTH = kR * kThreads / kWX;  // window rows per block
+constexpr int kTW = 2 * kWX;          // window columns per block
+constexpr int kCH = 8;                // staging chunk: 8 code pairs, 16 bytes
+constexpr int kMaxT = 257;            // steps a 16-bit field holds: 257 * 255 <= 65535
+constexpr uint32_t kPair = 0x00FF00FFu;
+constexpr uint32_t kField = 0x00010001u;
 
-template <int KB>
-__device__ __forceinline__ void init_top(float (&top)[KB], int (&tidx)[KB]) {
+// kLong: T > 64, the tables reloaded every 63 steps (stage_window.cuh).
+// Three 256-thread blocks an SM allow 85 registers a thread, which the sums
+// (48) and a list of up to 8 fit; longer lists run fewer blocks an SM.
+template <int KB, bool kLong>
+__global__ void __launch_bounds__(kThreads, KB <= 8 ? 3 : (KB <= 32 ? 2 : 1))
+    paired_kernel(const uint16_t* __restrict__ pairs, const int* __restrict__ ox, const int* __restrict__ oy,
+                  const int* __restrict__ gidx, const uint8_t* __restrict__ cand_ok,
+                  const int* __restrict__ gstart, const int* __restrict__ lay, const int* __restrict__ off, int NB,
+                  int T, int H, int Wp, int SH, int SW, int K_out, int buf_elems, Decode D,
+                  float* __restrict__ top_lh, int* __restrict__ top_idx) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    const kb_stage::Plan plan{ox, oy, gstart, lay, off, T};
+    const kb_stage::Tables s = kb_stage::tables_at(smem);
+    uint16_t* bufs = reinterpret_cast<uint16_t*>(smem + header_bytes());
+
+    const int tx = threadIdx.x % kWX, ty = threadIdx.x / kWX;
+    const int col0 = blockIdx.x * kTW, i0 = blockIdx.y * kTH;
+    const int ir = i0 + kR * ty;  // this thread's first row
+    const int jc = col0 + 2 * tx;  // this thread's first column
+    const float psi_d = __fsub_rn(D.psi_min, D.psi_scale);
+    const float phi_d = __fsub_rn(D.phi_min, D.phi_scale);
+
+    for (int r = 0; r < kR; ++r)
+        for (int p = 0; p < 2; ++p) {
+            if (ir + r >= SH || jc + p >= SW) continue;
+            for (int k = 0; k < K_out; ++k) {
+                const size_t o = ((size_t)k * SH + ir + r) * SW + jc + p;
+                top_lh[o] = -FLT_MAX;
+                top_idx[o] = -1;
+            }
+        }
+
+    for (int b = 0; b < NB; ++b) {
+        const int c0 = gstart[b];
+        const int n = gstart[b + 1] - c0;
+        __syncthreads();  // the previous batch is done with the tables and buffers
+        kb_stage::load_tables<kThreads>(s, plan, b, 0);
+        __syncthreads();
+
+        // Per member and row: psi and phi codes as two 16-bit fields (one
+        // per column), and the two columns' sample counts.
+        uint32_t ap[kG][kR], af[kG][kR], ao[kG][kR];
 #pragma unroll
-    for (int k = 0; k < KB; ++k) {
-        top[k] = -FLT_MAX;
-        tidx[k] = -1;
-    }
-}
-
-// K4: uint8 pairs as 16-bit words; thread owns columns j0 = 2 * (block
-// column) and j0 + 1. The two columns' words form one 32-bit register
-// [psi0, phi0, psi1, phi1] (bytes, low first); the psi fields are bits
-// 0-7 and 16-23, the phi fields bits 8-15 and 24-31.
-template <int KB>
-__global__ void __launch_bounds__(kBlock)
-    paired_kernel(const uint16_t* __restrict__ pairs, const int* __restrict__ ox,
-                  const int* __restrict__ oy, const uint8_t* __restrict__ cand_ok, int C, int T,
-                  int H, int W, int Wp, int SH, int SW, int K_out, int CS, int cand_offset,
-                  float psi_min, float psi_scale, float phi_min, float phi_scale, float min_obs,
-                  float min_lh, int gate_min_obs, int gate_min_lh, float* __restrict__ top_lh,
-                  int* __restrict__ top_idx) {
-    extern __shared__ int smem[];
-    int* s_ox = smem;
-    int* s_oy = s_ox + CS * T;
-    uint8_t* s_ok = reinterpret_cast<uint8_t*>(s_oy + CS * T);
-    constexpr uint32_t kPairOnes = 0x00FF00FFu;   // one code field per column
-    constexpr uint32_t kFieldOnes = 0x00010001u;  // bit 0 of each 16-bit field
-
-    const int j0 = 2 * (blockIdx.x * kBlock + threadIdx.x);
-    const int i = blockIdx.y;
-    const bool active = j0 < SW;
-    const size_t plane = (size_t)H * Wp;
-    const float psi_d = __fsub_rn(psi_min, psi_scale);
-    const float phi_d = __fsub_rn(phi_min, phi_scale);
-
-    float top0[KB], top1[KB];
-    int tidx0[KB], tidx1[KB];
-    init_top(top0, tidx0);
-    init_top(top1, tidx1);
-
-    for (int c0 = 0; c0 < C; c0 += CS) {
-        const int ncs = min(CS, C - c0);
-        stage_batch(s_ox, s_oy, s_ok, ox, oy, cand_ok, c0, ncs, T);
-        if (!active) continue;
-        for (int cb = 0; cb < ncs; cb += kCB) {
-            uint32_t ap[kCB], af[kCB], ao[kCB];
+        for (int m = 0; m < kG; ++m)
 #pragma unroll
-            for (int u = 0; u < kCB; ++u) ap[u] = af[u] = ao[u] = 0u;
-            const uint16_t* pt = pairs;
-            for (int t = 0; t < T; ++t, pt += plane) {
+            for (int r = 0; r < kR; ++r) ap[m][r] = af[m][r] = ao[m][r] = 0u;
+
+        kb_stage::stage_plane<kThreads>(pairs, H, Wp, bufs, s, 0, 0, i0, col0);
+        for (int t = 0; t < T; ++t) {
+            kb_stage::cp_async_wait_all();
+            __syncthreads();  // step t has landed; every thread is done with step t - 1
+            int lt = t;       // the table row of step t
+            if (kLong) {
+                lt = t % kb_stage::kStride;
+                if (t > 0 && lt == 0) {
+                    kb_stage::load_tables<kThreads>(s, plan, b, t);
+                    __syncthreads();
+                }
+            }
+            if (t + 1 < T)
+                kb_stage::stage_plane<kThreads>(pairs, H, Wp, bufs + ((t + 1) & 1) * buf_elems, s, t + 1, lt + 1, i0,
+                                                col0);
+            const uint32_t* w32 = reinterpret_cast<const uint32_t*>(bufs + (t & 1) * buf_elems);
+            const int pitch = s.lay[lt * kLay + 2];
 #pragma unroll
-                for (int u = 0; u < kCB; ++u) {
-                    if (cb + u < ncs) {
-                        const int y = s_oy[(cb + u) * T + t] + i;
-                        const int x = s_ox[(cb + u) * T + t] + j0;
-                        if ((unsigned)y < (unsigned)H) {
-                            const uint16_t* row = pt + (size_t)y * Wp;
-                            uint32_t w;
-                            if ((x & 1) == 0 && x >= 0 && x + 1 < W) {
-                                w = *reinterpret_cast<const uint32_t*>(row + x);  // 4-byte aligned
-                            } else {
-                                const uint32_t lo = (unsigned)x < (unsigned)W ? row[x] : 0u;
-                                const uint32_t hi = (unsigned)(x + 1) < (unsigned)W ? row[x + 1] : 0u;
-                                w = lo | (hi << 16);
-                            }
-                            const uint32_t pf = w & kPairOnes;
-                            const uint32_t ff = (w >> 8) & kPairOnes;
-                            // Per field: (v + 255) has bit 8 set iff v > 0.
-                            const uint32_t both = (((pf + kPairOnes) >> 8) & kFieldOnes) &
-                                                  (((ff + kPairOnes) >> 8) & kFieldOnes);
-                            const uint32_t keep = both * 0xFFFFu;  // 0xFFFF in each valid field
-                            ap[u] += pf & keep;
-                            af[u] += ff & keep;
-                            ao[u] += both;
-                        }
+            for (int m = 0; m < kG; ++m) {
+                if (m < n) {
+                    const int o = s.off[lt * kG + m] + 2 * tx + kR * ty * pitch;
+                    const bool odd = o & 1;  // the same for the whole block
+#pragma unroll
+                    for (int r = 0; r < kR; ++r) {
+                        const int e = o + r * pitch;
+                        const uint32_t w =
+                            odd ? __funnelshift_r(w32[(e - 1) >> 1], w32[(e + 1) >> 1], 16) : w32[e >> 1];
+                        const uint32_t pv = w & kPair, fv = (w >> 8) & kPair;
+                        const uint32_t ind = ((pv + kPair) >> 8) & ((fv + kPair) >> 8) & kField;
+                        const uint32_t keep = ind * 0xFFu;
+                        ap[m][r] += pv & keep;
+                        af[m][r] += fv & keep;
+                        ao[m][r] += ind;
                     }
                 }
             }
+        }
+
 #pragma unroll
-            for (int u = 0; u < kCB; ++u) {
-                if (cb + u >= ncs) break;
-                const bool ok = s_ok[cb + u] != 0;
-                const int ni = cand_offset + c0 + cb + u;
+        for (int r = 0; r < kR; ++r) {
+            const int i = ir + r;
 #pragma unroll
-                for (int h = 0; h < 2; ++h) {
-                    const int sh = 16 * h;
-                    const int obs_i = (int)((ao[u] >> sh) & 0xFFFFu);
-                    const float obs = (float)obs_i;
-                    const float lh =
-                        likelihood(decode_sum((int)((ap[u] >> sh) & 0xFFFFu), obs, psi_scale, psi_d),
-                                   decode_sum((int)((af[u] >> sh) & 0xFFFFu), obs, phi_scale, phi_d));
-                    const float nv = gated(lh, obs_i, ok, min_obs, min_lh, gate_min_obs, gate_min_lh);
-                    if (h == 0) rank_insert<KB, false>(top0, tidx0, nv, ni);
-                    else rank_insert<KB, false>(top1, tidx1, nv, ni);
+            for (int p = 0; p < 2; ++p) {
+                const int j = jc + p;
+                if (i >= SH || j >= SW) continue;
+                const int sh = 16 * p;
+                float top[KB];
+                int tidx[KB];
+                load_top(top, tidx, K_out, SH, SW, i, j, top_lh, top_idx);
+#pragma unroll
+                for (int m = 0; m < kG; ++m) {
+                    if (m < n)
+                        insert_member<KB, false>(top, tidx, (int)((ap[m][r] >> sh) & 0xFFFFu),
+                                                 (int)((af[m][r] >> sh) & 0xFFFFu), (int)((ao[m][r] >> sh) & 0xFFFFu),
+                                                 cand_ok[c0 + m] != 0, gidx[c0 + m], D, psi_d, phi_d);
                 }
+                store_top(top, tidx, K_out, SH, SW, i, j, top_lh, top_idx);
             }
         }
     }
-    if (!active) return;
-    store_top(top0, tidx0, K_out, SH, SW, i, j0, top_lh, top_idx);
-    if (j0 + 1 < SW) store_top(top1, tidx1, K_out, SH, SW, i, j0 + 1, top_lh, top_idx);
-}
-
-// Opts a kernel in to more than 48 KB of dynamic shared memory when needed.
-template <typename Kernel>
-int allow_smem(Kernel kernel, size_t smem) {
-    if (smem <= 48 * 1024) return 0;
-    return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 }  // namespace
 
 extern "C" {
 
-int kb_search_paired_cand_batch() { return kCB; }
+int kb_search_paired_max_group() { return kG; }
 
-// Shared memory for CS staged candidates of T offsets each.
-size_t kb_search_paired_smem_bytes(int CS, int T) {
-    return (size_t)CS * T * 2 * sizeof(int) + (size_t)CS;
+// K4's most time steps: the 16-bit fields hold 257 steps of uint8 codes.
+int kb_search_paired_max_t() { return kMaxT; }
+
+// The block's tile (axis 0 its rows, axis 1 its columns) and the staging
+// chunk in code pairs (axis 2), for the host's window layout.
+int kb_search_paired_tile(int axis) { return axis == 0 ? kTH : (axis == 1 ? kTW : kCH); }
+
+// Shared memory for two staging buffers of buf_elems code pairs (and the
+// tables, whose size does not depend on T).
+size_t kb_search_paired_smem_bytes(int buf_elems) {
+    return header_bytes() + 2 * (size_t)buf_elems * sizeof(uint16_t);
 }
 
-// Common arguments: pairs (T, H, Wp) code pairs; ox, oy (C, T) int32
-// window-origin offsets; cand_ok (C,) uint8; top_lh, top_idx (K_out, SH,
-// SW). All contiguous on the device. K_out <= 64. Launches on `stream`;
-// returns cudaGetLastError() (cudaErrorInvalidValue for what it cannot run).
-#define KB_ENC_PARAMS                                                                              \
-    const void *pairs, const int *ox, const int *oy, const uint8_t *cand_ok, int C, int T, int H,  \
-        int W, int Wp, int SH, int SW, int K_out, int CS, int cand_offset, float psi_min,          \
-        float psi_scale, float phi_min, float phi_scale, float min_obs, float min_lh,              \
-        int gate_min_obs, int gate_min_lh, float *top_lh, int *top_idx, void *stream
-#define KB_ENC_ARGS                                                                                \
-    ox, oy, cand_ok, C, T, H, W, Wp, SH, SW, K_out, CS, cand_offset, psi_min, psi_scale, phi_min,  \
-        phi_scale, min_obs, min_lh, gate_min_obs, gate_min_lh, top_lh, top_idx
+// Resident blocks per SM of K4 for K_out with smem bytes of shared memory,
+// or -1.
+int kb_search_paired_blocks_per_sm(int K_out, int smem) {
+#define KB_OCC(KB) return occupancy<kThreads>(paired_kernel<KB, false>, smem)
+    KB_DISPATCH(K_out, KB_OCC)
+#undef KB_OCC
+    return -1;
+}
 
-// K4: uint8 codes, T <= 257.
-int kb_search_paired(KB_ENC_PARAMS) {
-    if (T > 257) return (int)cudaErrorInvalidValue;
-    const size_t smem = kb_search_paired_smem_bytes(CS, T);
+// K4. pairs: (T, H, Wp) uint8 code pairs as 16-bit words, Wp a multiple of 8,
+// 16-byte aligned, the columns W..Wp zero; ox, oy: (C, T) int32
+// window-origin offsets in index order; gidx (C,) the global indices
+// (cand_offset + c) and cand_ok (C,) uint8; gstart (NB + 1,) the batch
+// bounds 0, 8, 16, ..., C; lay (NB, T, 5) and off (NB, T, 8) int32, the
+// window layout (csrc/stage_window.cuh) for buffers of buf_elems pairs (a
+// multiple of 8) with one extra column on each window's right; top_lh,
+// top_idx: (K_out, SH, SW). K_out <= 64, T <= 257. Launches on `stream`;
+// returns cudaGetLastError() (cudaErrorInvalidValue for what it cannot run).
+int kb_search_paired(const void* pairs, const int* ox, const int* oy, const int* gidx,
+                     const uint8_t* cand_ok, const int* gstart, const int* lay, const int* off, int NB, int T, int H,
+                     int Wp, int SH, int SW, int K_out, int buf_elems, float psi_min, float psi_scale, float phi_min,
+                     float phi_scale, float min_obs, float min_lh, int gate_min_obs, int gate_min_lh, float* top_lh,
+                     int* top_idx, void* stream) {
+    if (Wp % kCH != 0 || buf_elems % kCH != 0 || (reinterpret_cast<uintptr_t>(pairs) & 15) != 0 || T < 1 ||
+        T > kMaxT || NB < 1)
+        return (int)cudaErrorInvalidValue;
+    const Decode D{psi_min, psi_scale, phi_min, phi_scale, min_obs, min_lh, gate_min_obs, gate_min_lh};
+    const size_t smem = kb_search_paired_smem_bytes(buf_elems);
+    const dim3 grid((SW + kTW - 1) / kTW, (SH + kTH - 1) / kTH);
     cudaStream_t s = (cudaStream_t)stream;
-    const dim3 grid((SW + 2 * kBlock - 1) / (2 * kBlock), SH);
-#define KB_LAUNCH(KB)                                                                              \
-    {                                                                                              \
-        auto k = paired_kernel<KB>;                                                                \
-        int err = allow_smem(k, smem);                                                        \
-        if (err) return err;                                                                       \
-        k<<<grid, kBlock, smem, s>>>((const uint16_t*)pairs, KB_ENC_ARGS);                         \
-        return (int)cudaGetLastError();                                                            \
-    }
-    if (K_out <= 1) KB_LAUNCH(1);
-    if (K_out <= 2) KB_LAUNCH(2);
-    if (K_out <= 4) KB_LAUNCH(4);
-    if (K_out <= 8) KB_LAUNCH(8);
-    if (K_out <= 16) KB_LAUNCH(16);
-    if (K_out <= 32) KB_LAUNCH(32);
-    if (K_out <= 64) KB_LAUNCH(64);
+    const bool lng = T > kb_stage::kRows;
+#define KB_LAUNCH(KB)                                                                                         \
+    return launch<kThreads>(lng ? paired_kernel<KB, true> : paired_kernel<KB, false>, grid, smem, s,          \
+                            (const uint16_t*)pairs, ox, oy, gidx, cand_ok, gstart, lay, off, NB, T, H, Wp, SH, SW, \
+                            K_out, buf_elems, D, top_lh, top_idx)
+    KB_DISPATCH(K_out, KB_LAUNCH)
 #undef KB_LAUNCH
     return (int)cudaErrorInvalidValue;
 }

@@ -8,9 +8,11 @@ uint8 code pairs read as 32-bit words do; the kernel sums the words' 16-bit
 fields over NG groups x T time steps x G members with a row roll and a lane
 roll per slot (the function is written out in ``csrc/exactrow_microbench.cu``
 and in :func:`exactrow_accumulate_plain`). Modes A, B and C compute the same
-result and differ only in where the extract and the roll sit. On a CUDA
-tensor the wrapper launches the kernel or raises; on a CPU tensor it runs
-the twin.
+result and differ only in where the extract and the roll sit. The kernel's
+blocks each own a tile of K6_TILE_ROWS rows x K6_TILE_WORDS words, a thread
+a run of K6_RUN words, and stage each (group, t)'s window rolled by row and
+lane (``csrc/exactrow_microbench.cu``). On a CUDA tensor the wrapper
+launches the kernel or raises; on a CPU tensor it runs the twin.
 """
 
 import ctypes
@@ -23,12 +25,15 @@ MODES = ("A", "B", "C")
 PAIR = 0x00FF00FF
 FIELD = 0x00010001
 _MASK32 = 0xFFFFFFFF
+# The kernel's tile (rows, words) and a thread's run of words.
+K6_TILE_ROWS, K6_TILE_WORDS, K6_RUN = 4, 512, 8
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "kb_exactrow": ([_P, _P, _I, _I, _I, _I, _I, _I, _P, _P], ctypes.c_int),
     "kb_exactrow_max_width": ([], ctypes.c_int),
-    "kb_exactrow_blocks_per_sm": ([_I, _I], ctypes.c_int),
+    "kb_exactrow_blocks_per_sm": ([_I], ctypes.c_int),
+    "kb_exactrow_tile": ([_I], ctypes.c_int),
 }
 
 
@@ -115,6 +120,8 @@ def exactrow_accumulate(tbl, buf, mode="A", group=8, th=None, check=True):
     th = _default_th(buf) if th is None else int(th)
     NG, T, W4 = _check_args(tbl, buf, mode, group, th, check)
     lib = _build.load("exactrow_microbench", _SIGNATURES)
+    if tuple(lib.kb_exactrow_tile(a) for a in range(3)) != (K6_TILE_ROWS, K6_TILE_WORDS, K6_RUN):
+        raise RuntimeError("exactrow_accumulate: host and kernel disagree on the tile")
     if W4 > lib.kb_exactrow_max_width():
         raise ValueError(f"exactrow_accumulate: W4={W4} above the kernel's {lib.kb_exactrow_max_width()}")
     tbl = tbl.contiguous()

@@ -16,8 +16,9 @@ and the sum rounded on their own, in that order), then ranked as K2 ranks.
   ``csrc/search_topk_encoded_grouped.cu``.
 - ``search_paired`` replaces ``_search_kernel_paired`` (K4, :916): uint8
   codes with T <= 257, two output columns per thread summed as the two
-  16-bit fields of one 32-bit register, candidates one at a time in index
-  order. CUDA source ``csrc/search_topk_encoded.cu``.
+  16-bit fields of one 32-bit register, candidates in index order in
+  batches of 8 whose windows it stages as K5 does (:func:`k4_staging` lays
+  them out). CUDA source ``csrc/search_topk_encoded.cu``.
 - ``search_grouped`` replaces ``_search_kernel_paired_grouped`` (K5,
   :1493): uint8 codes, any T, candidates in groups whose rows lie close
   together (``ops/search_plan.py``), one shared-memory window per group and
@@ -42,28 +43,17 @@ from kbmod_tpu_torch.ops.search_plan import GROUP_G, grouped_plan, staging_heade
 
 # uint8 code sums fit a 16-bit field while T * 255 <= 65535.
 PAIRED_MAX_T = 257
-# Dynamic shared memory K4 stages offsets in without opting in to more.
-_STAGE_BYTES = 48 * 1024
-
-
-def _stage_candidates(C, T, batch):
-    """Candidates K4 stages in shared memory per batch: as many as 48 KB
-    holds, a multiple of the kernel's candidate batch, at least one batch."""
-    per = 8 * T + 1
-    cs = max(batch, (_STAGE_BYTES // per) // batch * batch)
-    return min(cs, -(-C // batch) * batch)
-
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_PAIRED_SIGNATURES = {
-    "kb_search_paired": (
-        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _I, _I, _P, _P, _P],
-        ctypes.c_int,
-    ),
-    "kb_search_paired_smem_bytes": ([_I, _I], ctypes.c_size_t),
-    "kb_search_paired_cand_batch": ([], ctypes.c_int),
-}
 _GROUPED_ARGS = [_P] * 8 + [_I] * 8 + [_F] * 6 + [_I, _I, _P, _P, _P]
+_PAIRED_SIGNATURES = {
+    "kb_search_paired": (_GROUPED_ARGS, ctypes.c_int),
+    "kb_search_paired_max_group": ([], ctypes.c_int),
+    "kb_search_paired_max_t": ([], ctypes.c_int),
+    "kb_search_paired_tile": ([_I], ctypes.c_int),
+    "kb_search_paired_smem_bytes": ([_I], ctypes.c_size_t),
+    "kb_search_paired_blocks_per_sm": ([_I, _I], ctypes.c_int),
+}
 _GRP_SIGNATURES = {
     "kb_search_grouped": (_GROUPED_ARGS, ctypes.c_int),
     "kb_search_grouped_smem_bytes": ([_I, _I], ctypes.c_size_t),
@@ -91,6 +81,31 @@ K5_MAX_T = 65535
 K3_TILE_ROWS, K3_TILE_COLS = 8, 128
 K3_CHUNK = {8: 8, 16: 4}
 K3_MAX_T = {8: 65535, 16: 32768}
+# K4's block tile (rows, columns) and staging chunk in code pairs
+# (csrc/search_topk_encoded.cu).
+K4_TILE_ROWS, K4_TILE_COLS, K4_CHUNK = 4, 256, 8
+
+
+def k4_staging(dxs, dys, x_min, y_min):
+    """K4's host layout for (C, T) offsets: the candidates in index order, in
+    batches of 8 (``starts`` 0, 8, 16, ...), and the window layout of their
+    staged code pairs (one extra column on each window's right, which an odd
+    column shift reads; one slab per member unless a box over the batch is
+    smaller). Returns a dict with ``starts``, ``lay``, ``off``,
+    ``buf_elems`` and ``smem_bytes`` (the tables' header and two buffers of
+    2 bytes a pair). Raises ValueError past T = 257 or when that exceeds a
+    block's shared memory."""
+    C, T = np.shape(dxs)
+    if T > PAIRED_MAX_T:
+        raise ValueError(f"search_paired: T={T} above the kernel's {PAIRED_MAX_T}")
+    starts = np.arange(0, C, GROUP_G, dtype=np.int64)
+    lay, off, buf_elems = window_layout_cached(
+        np.asarray(dxs, dtype=np.int64) + int(x_min), np.asarray(dys, dtype=np.int64) + int(y_min), starts,
+        tile_rows=K4_TILE_ROWS, tile_cols=K4_TILE_COLS, chunk=K4_CHUNK, extra=1)
+    smem = staging_header_bytes() + 2 * 2 * buf_elems
+    if smem > _build.MAX_SMEM_BYTES:
+        raise ValueError(f"search_paired: T={T} windows need {smem} bytes of shared memory")
+    return dict(starts=starts, lay=lay, off=off, buf_elems=buf_elems, smem_bytes=smem)
 
 
 def k5_staging(dxs, dys, x_min, y_min, plan):
@@ -275,26 +290,33 @@ def _empty(K, SH, SW, dev):
 
 
 def _launch_grouped(lib, entry, lead, prepared, min_obs, min_lh, kw, st, order, starts, name):
-    """Launch a grouped kernel (K3, K5) with ``_prepare``'s tensors and the
-    host plan ``st`` (its layout) over the plan ``(order, starts)``;
-    ``lead`` are the entry's arguments before the code pairs."""
+    """Launch a staged kernel (K3, K4, K5) with ``_prepare``'s tensors and the
+    host plan ``st`` (its layout) over the plan ``(order, starts)``, or over
+    the candidates in index order when ``order`` is None; ``lead`` are the
+    entry's arguments before the code pairs. The group bounds and the layout
+    go to the card in one copy."""
     pairs, ox, oy, cand_ok, em, (C, T, H, W, Wp, SH, SW, K) = prepared
     dev = pairs.device
     pad = pairs[:, :, W:]
     if Wp > W and bool((pad.view(torch.int16) if pad.dtype == torch.uint16 else pad).any()):
         raise ValueError(f"{name}: the code pairs' padding columns must be zero")
-    order_t = torch.as_tensor(order, device=dev)
-    ox, oy = ox[order_t].contiguous(), oy[order_t].contiguous()
-    gidx = (order_t.to(torch.int32) + int(kw.get("cand_offset", 0))).contiguous()
-    cand_ok = cand_ok[order_t].contiguous()
-    gstart = torch.as_tensor(np.append(starts, C).astype(np.int32), device=dev)
-    lay = torch.as_tensor(st["lay"], device=dev)
-    off = torch.as_tensor(st["off"], device=dev)
+    offset = int(kw.get("cand_offset", 0))
+    if order is None:
+        gidx = torch.arange(offset, offset + C, dtype=torch.int32, device=dev)
+    else:
+        order_t = torch.as_tensor(order, device=dev)
+        ox, oy = ox[order_t].contiguous(), oy[order_t].contiguous()
+        gidx = (order_t.to(torch.int32) + offset).contiguous()
+        cand_ok = cand_ok[order_t].contiguous()
+    NG, n_lay = len(starts), st["lay"].size
+    tables = torch.as_tensor(
+        np.concatenate([np.append(starts, C), st["lay"].ravel(), st["off"].ravel()]).astype(np.int32), device=dev)
+    gstart, lay, off = tables[: NG + 1], tables[NG + 1 : NG + 1 + n_lay], tables[NG + 1 + n_lay :]
     top_lh = torch.empty((K, SH, SW), dtype=torch.float32, device=dev)
     top_idx = torch.empty((K, SH, SW), dtype=torch.int32, device=dev)
     err = getattr(lib, entry)(
         *lead, pairs.data_ptr(), ox.data_ptr(), oy.data_ptr(), gidx.data_ptr(), cand_ok.data_ptr(),
-        gstart.data_ptr(), lay.data_ptr(), off.data_ptr(), len(starts), T, H, Wp, SH, SW, K,
+        gstart.data_ptr(), lay.data_ptr(), off.data_ptr(), NG, T, H, Wp, SH, SW, K,
         st["buf_elems"], *em, *_gate_args(min_obs, min_lh, kw), top_lh.data_ptr(), top_idx.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -343,31 +365,29 @@ search_encoded.launches = 0
 
 def search_paired(planes, dxs, dys, min_obs, min_lh, **kw):
     """K4: the uint8 search with two columns summed per 32-bit add, for
-    T <= 257 (arguments as :func:`search_encoded`)."""
+    T <= 257 (arguments as :func:`search_encoded`). The candidates go in
+    index order, in the batches of :func:`k4_staging`."""
     T = planes.shape[0]
     if planes.psi_codes.dtype != torch.uint8 or T > PAIRED_MAX_T:
         raise ValueError(f"search_paired: needs uint8 codes and T <= {PAIRED_MAX_T}, got {planes.psi_codes.dtype}, T={T}")
     if planes.psi_codes.device.type == "cpu":
         return _twin(planes, dxs, dys, min_obs, min_lh, kw)
-    pairs, ox, oy, cand_ok, em, (C, T, H, W, Wp, SH, SW, K) = _prepare(planes, dxs, dys, kw, "search_paired")
-    dev = pairs.device
+    prepared = _prepare(planes, dxs, dys, kw, "search_paired")
+    C, _, _, _, _, SH, SW, K = prepared[-1]
     if C == 0:
-        return _empty(K, SH, SW, dev)
+        return _empty(K, SH, SW, prepared[0].device)
+    dx_np, dy_np = _offsets_np(dxs, dys)
+    st = k4_staging(dx_np, dy_np, kw["x_min"], kw["y_min"])
     lib = _build.load("search_topk_encoded", _PAIRED_SIGNATURES)
-    cs = _stage_candidates(C, T, lib.kb_search_paired_cand_batch())
-    if lib.kb_search_paired_smem_bytes(cs, T) > _build.MAX_SMEM_BYTES:
-        raise ValueError(f"search_paired: T={T} offsets do not fit one block's shared memory")
-    top_lh = torch.empty((K, SH, SW), dtype=torch.float32, device=dev)
-    top_idx = torch.empty((K, SH, SW), dtype=torch.int32, device=dev)
-    err = lib.kb_search_paired(
-        pairs.data_ptr(), ox.data_ptr(), oy.data_ptr(), cand_ok.data_ptr(),
-        C, T, H, W, Wp, SH, SW, K, cs, int(kw.get("cand_offset", 0)), *em,
-        *_gate_args(min_obs, min_lh, kw), top_lh.data_ptr(), top_idx.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _build.check(err, "search_paired")
+    tile = tuple(lib.kb_search_paired_tile(a) for a in range(3))
+    if (tile != (K4_TILE_ROWS, K4_TILE_COLS, K4_CHUNK) or lib.kb_search_paired_max_group() != GROUP_G
+            or lib.kb_search_paired_max_t() != PAIRED_MAX_T
+            or st["smem_bytes"] != lib.kb_search_paired_smem_bytes(st["buf_elems"])):
+        raise RuntimeError("search_paired: host and kernel disagree on the tile, batch, T limit or shared memory")
+    out = _launch_grouped(lib, "kb_search_paired", (), prepared, min_obs, min_lh, kw, st, None, st["starts"],
+                          "search_paired")
     search_paired.launches += 1
-    return top_lh, top_idx
+    return out
 
 
 search_paired.launches = 0

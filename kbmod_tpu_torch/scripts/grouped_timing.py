@@ -1,5 +1,6 @@
-"""Time the grouped search kernels (K2, K5 and K3) at the main path's
-shapes, on random data, for one checkout of the port.
+"""Time the search kernels (K2, K5, K3 and K4) at the main path's shapes,
+on random data, and K6's three modes at NG = 64 and 3,015, for one
+checkout of the port.
 
     python kbmod_tpu_torch/scripts/grouped_timing.py [--root DIR]
 
@@ -9,8 +10,13 @@ compared on the same card: run it for each, in turns (A, B, B, A). The shapes ar
 16 nights of 4 visits, a 2048 x 2048 frame, the 41 x 41 KBMODV1Search grid
 (1,681 candidates); K2 over the full frame at K = 8 and over a 256-row band
 at K = 32, K5 (uint8) over the full frame at K = 8, K3 (uint16) over the
-band at K = 8, each with min_obs 32 and the min_lh gate at 10. Prints one
-line of median milliseconds (3 launches each, CUDA events). Needs a card.
+band at K = 8, K4 (uint8) over the band and the main path's sparse list
+(every 26th candidate and the object's, 66) at K = 8 and K = 32, each with
+min_obs 32 and the min_lh gate at 10; K6 in modes A, B and C at the JAX
+script's sizes with NG = 64 and 3,015 (midscale's group count); a kernel the
+checkout lacks is skipped with a note. Prints one
+line of median milliseconds (3 launches each, 5 for K6, CUDA events).
+Needs a card.
 Run it as a file, not with -m, so that the package is imported from
 ``--root``.
 """
@@ -48,7 +54,7 @@ def main(argv=None):
     from kbmod_tpu_torch.trajectory_generator import KBMODV1Search
 
     t0 = time.perf_counter()
-    sources = sorted(p.stem for p in _build.SRC_DIR.glob("search_topk*.cu"))
+    sources = sorted(p.stem for p in _build.SRC_DIR.glob("*.cu") if p.stem != "psi_phi_conv")
     _build.build(sources)
     print(f"grouped_timing {args.root}: built {sources} in {time.perf_counter() - t0:.1f} s", flush=True)
     dev = torch.device("cuda")
@@ -100,9 +106,56 @@ def main(argv=None):
     del p8
     p16 = planes(16, np.array([-6.0, 12.0 / 65534, 0.1, 4.0 / 65534], np.float32))
     k3 = ms(lambda: ek.search_encoded(p16, dx, dy, 32.0, 10.0, k_results=8, **gates, **band))
-    print(f"grouped_timing {args.root}: K2 full {k2:.3f} ms, K2 band K=32 {k2b:.3f} ms, K5 full {k5:.3f} ms, "
-          f"K3 u16 band {k3:.3f} ms ({torch.cuda.get_device_name(0)})", flush=True)
+    del p16
+    line = (f"K2 full {k2:.3f} ms, K2 band K=32 {k2b:.3f} ms, K5 full {k5:.3f} ms, K3 u16 band {k3:.3f} ms, "
+            + time_k4(ek, planes(8, np.array([-6.0, 12.0 / 254, 0.1, 4.0 / 254], np.float32)), dxs, dys, band, ms, dev)
+            + ", " + time_k6(ms, dev))
+    print(f"grouped_timing {args.root}: {line} ({torch.cuda.get_device_name(0)})", flush=True)
     return 0
+
+
+def time_k4(ek, p8, dxs, dys, band, ms, dev):
+    """K4 on the band over the main path's sparse candidates (every 26th of
+    the grid and the object's, 25 x 41 + 20), at K = 8 and 32."""
+    import torch
+
+    sel = list(range(0, len(dxs), 26)) + [25 * 41 + 20]
+    dx, dy = (torch.as_tensor(a[sel], device=dev) for a in (dxs, dys))
+    out = []
+    for K in (8, 32):
+        run = lambda: ek.search_paired(p8, dx, dy, 32.0, 10.0, k_results=K, gate_min_lh=True, **band)  # noqa: E731
+        out.append(f"K4 sparse band ({len(sel)} candidates) K={K} {ms(run):.3f} ms "
+                   f"(kernel alone {kernel_ms(run, 'paired_kernel')})")
+    return ", ".join(out)
+
+
+def kernel_ms(fn, name):
+    """Device milliseconds of the kernels whose name holds ``name`` in one
+    call of ``fn``, from torch.profiler's trace, or "not measured"."""
+    import torch
+
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us = sum(e.device_time_total for e in prof.key_averages() if name in e.key)
+    return f"{us / 1e3:.3f} ms" if us > 0 else "not measured"
+
+
+def time_k6(ms, dev):
+    """K6's three modes at the JAX script's sizes with NG = 64 (its default)
+    and 3,015 groups."""
+    try:
+        from kbmod_tpu_torch.ops.exactrow_kernel import MODES, exactrow_accumulate
+        from kbmod_tpu_torch.scripts.exactrow_microbench import make_inputs
+    except ImportError as e:
+        return f"K6 skipped ({e})"
+    out = []
+    for ng in (64, 3015):
+        tbl, buf = make_inputs(ng=ng, device=dev)
+        exactrow_accumulate(tbl, buf, "A", 8, 32)  # checks the table once
+        out += [f"K6 mode {m} NG={ng} "
+                f"{ms(lambda: exactrow_accumulate(tbl, buf, m, 8, 32, check=False), reps=5):.3f} ms" for m in MODES]
+    return ", ".join(out)
 
 
 if __name__ == "__main__":

@@ -21,7 +21,13 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from kbmod_tpu_torch.ops import exactrow_kernel
-from kbmod_tpu_torch.ops.exactrow_kernel import exactrow_accumulate, exactrow_accumulate_plain
+from kbmod_tpu_torch.ops.exactrow_kernel import (
+    K6_RUN,
+    K6_TILE_ROWS,
+    K6_TILE_WORDS,
+    exactrow_accumulate,
+    exactrow_accumulate_plain,
+)
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = os.path.join(REPO_ROOT, "scripts", "exactrow_microbench.py")
@@ -141,3 +147,81 @@ def test_script_imports_without_running_and_needs_a_card(capsys):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         mb.main(["A", "--th", str(TH), "--w4", str(W4), "--t", str(T), "--ng", str(NG)])
     assert exactrow_kernel.exactrow_accumulate.launches == launches
+
+
+def _k6_replay(tbl, buf, mode, group, th, slices):
+    """The new K6 (csrc/exactrow_microbench.cu) replayed in numpy: per block
+    of K6_TILE_ROWS x K6_TILE_WORDS words and per slice of the groups, each
+    (group, t)'s window staged with both rolls in the staging address (row
+    r0 + rr + rs mod SL, words from column c0 + aln mod W4 on), then each
+    thread's run of K6_RUN words summed from the staged row as the mode
+    reads it, and the block's sums added into out (mod 2^32)."""
+    NG, T3 = tbl.shape
+    T, (rows, W4) = T3 // 3, buf.shape
+    SL = th + 8
+    P, F, M = 0x00FF00FF, 0x00010001, 0xFFFFFFFF
+    words = buf.astype(np.int64) & M
+    stage_w = K6_TILE_WORDS + 8 - 1
+    out = np.zeros((th, W4), np.int64)
+    run = np.arange(K6_TILE_WORDS // K6_RUN)[:, None] * K6_RUN + np.arange(K6_RUN)[None, :]  # (threads, j)
+    for r0 in range(0, th, K6_TILE_ROWS):
+        for c0 in range(0, W4, K6_TILE_WORDS):
+            for z in range(slices):
+                g0, g1 = z * NG // slices, (z + 1) * NG // slices
+                tot = np.zeros((K6_TILE_ROWS,) + run.shape, np.int64)
+                for pg in range(g0, g1):
+                    for t in range(T):
+                        rs, base, aln = (int(v) for v in tbl[pg, [t, T + t, 2 * T + t]])
+                        start = (c0 + aln) % W4
+                        k = np.arange(stage_w)
+                        col = np.where(k + start >= W4, k + start - W4, k + start) if W4 >= stage_w else (start + k) % W4
+                        stg = np.zeros((K6_TILE_ROWS, stage_w + 1), np.int64)  # the pitch's last word is never staged
+                        for rr in range(min(K6_TILE_ROWS, th - r0)):
+                            q = r0 + rr + rs
+                            q = q - SL if q >= SL else q
+                            stg[rr, :stage_w] = words[base + q, col]
+                        for gi in range(group):
+                            if mode == "A":  # a shared load a member-word, the index from scratch
+                                w = stg[:, run + gi]
+                                pv, fv = w & P, (w >> 8) & P
+                                terms = pv + fv + (((pv + P) >> 8) & F)
+                            else:  # the run's words loaded once; the member reads word j + gi
+                                loaded = stg[:, run[:, :1] + np.arange(K6_RUN + 8)[None, :]]
+                                pv_all, fv_all = loaded & P, (loaded >> 8) & P
+                                if mode == "B":  # one extract a loaded word, three adds a member-word
+                                    ind_all = ((pv_all + P) >> 8) & F
+                                    sel = np.arange(K6_RUN) + gi
+                                    pv, terms = pv_all[..., sel], pv_all[..., sel] + fv_all[..., sel] + ind_all[..., sel]
+                                else:  # C: the extract a member-word
+                                    w = loaded[..., np.arange(K6_RUN) + gi]
+                                    pv, fv = w & P, (w >> 8) & P
+                                    terms = pv + fv + (((pv + P) >> 8) & F)
+                            tot = (tot + terms + (pv if gi == 0 else 0)) & M
+                live_r = np.arange(K6_TILE_ROWS) < th - r0
+                c = c0 + run
+                for rr in np.flatnonzero(live_r):
+                    keep = c < W4
+                    np.add.at(out[r0 + rr], c[keep], tot[rr][keep])
+    out &= M
+    return np.where(out >= 1 << 31, out - (1 << 32), out).astype(np.int32)
+
+
+@pytest.mark.parametrize("mode", ["A", "B", "C"])
+@pytest.mark.parametrize("shape", [(8, 16, 3), (7, 601, 2), (5, 13, 5)])
+def test_k6_replay_matches_twin(mode, shape):
+    """The new K6's staging (rotated rows, words from the lane roll on, in
+    tiles that do not divide TH and W4, a row narrower than one staged run)
+    and register runs, replayed in numpy for every mode over wrap-around
+    tables and group slices, equal the twin exactly, at G = 8 and G = 3."""
+    th, w4, slices = shape
+    rng = np.random.default_rng(th + w4)
+    T, NG, rows = 3, 5, 2 * (th + 16)
+    SL = th + 8
+    buf = rng.integers(-(2**31), 2**31 - 1, (rows, w4), dtype=np.int64).astype(np.int32)
+    tbl = np.concatenate(
+        [rng.integers(0, SL, (NG, T)), rng.integers(0, rows - SL + 1, (NG, T)), rng.integers(-3 * w4, 3 * w4, (NG, T))],
+        axis=1,
+    ).astype(np.int32)
+    for group in (8, 3):
+        want = exactrow_accumulate_plain(torch.as_tensor(tbl), torch.as_tensor(buf), mode, group, th).numpy()
+        np.testing.assert_array_equal(_k6_replay(tbl, buf, mode, group, th, slices), want)

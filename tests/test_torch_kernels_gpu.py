@@ -249,8 +249,8 @@ ENC_CASES = {
 @pytest.mark.parametrize("name", sorted(ENC_CASES))
 @pytest.mark.parametrize(
     "kernel,bits,T",
-    [("K3", 16, 7), ("K3", 16, 300), ("K3", 8, 260), ("K4", 8, 7), ("K5", 8, 7), ("K5", 8, 257), ("K5", 8, 258),
-     ("K5", 8, 300)],
+    [("K3", 16, 7), ("K3", 16, 300), ("K3", 8, 260), ("K4", 8, 7), ("K4", 8, 257), ("K5", 8, 7), ("K5", 8, 257),
+     ("K5", 8, 258), ("K5", 8, 300)],
 )
 def test_encoded_kernels_match_twin(dev, kernel, bits, T, name):
     planes, dxs, dys = _encoded_inputs(dev, T, bits)
@@ -292,6 +292,28 @@ def test_k5_odd_shifts_and_spread(dev):
             planes.psi_codes, planes.phi_codes, dx, dy, 2.0, 0.0, planes.em, **kw
         )
         assert torch.equal(got[1], ref[1]) and torch.equal(got[0], ref[0])
+
+
+@pytest.mark.parametrize("K", [1, 8, 32, 64])
+def test_k4_spread_odd_shifts_and_edges(dev, K):
+    """K4 where the candidates spread far in columns (one slab per member),
+    shift by odd columns (each word a funnel shift of two) and the window
+    reaches past all four edges of the image; C = 21, so the last batch is
+    partial."""
+    planes, dxs, dys = _encoded_inputs(dev, 9, 8, W=301, vmax=60.0)
+    assert (dxs % 2 == 1).any()
+    lay = search_encoded_kernel.k4_staging(dxs, dys, -5, -4)["lay"]
+    assert (lay[..., 0] > 1).any(), "no step staged one slab per member"
+    _, H, W = planes.shape
+    dx, dy = torch.as_tensor(dxs, device=dev), torch.as_tensor(dys, device=dev)
+    kw = dict(x_min=-5, x_max=W + 7, y_min=-4, y_max=H + 3, k_results=K, gate_min_obs=False)
+    launches = search_encoded_kernel.search_paired.launches
+    got = search_encoded_kernel.search_paired(planes, dx, dy, 0.0, 0.0, **kw)
+    assert search_encoded_kernel.search_paired.launches == launches + 1
+    ref = search_encoded_kernel.search_topk_encoded_shift(
+        planes.psi_codes, planes.phi_codes, dx, dy, 0.0, 0.0, planes.em, **kw
+    )
+    assert torch.equal(got[1], ref[1]) and torch.equal(got[0], ref[0])
 
 
 def _k3_grouped_inputs(dev, bits, T=9, H=23, W=301, C=29, vx=8.0, dup=11, seed=21):
@@ -410,6 +432,27 @@ def test_k6_matches_twin(dev, draw, mode):
     assert exactrow_kernel.exactrow_accumulate.launches == launches + 1
     ref = exactrow_kernel.exactrow_accumulate_plain(tbl, buf, mode, 8, 32)
     assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("mode", ["A", "B", "C"])
+@pytest.mark.parametrize("th,w4", [(7, 601), (5, 13), (33, 1030)])
+def test_k6_groups_and_ragged_tiles(dev, th, w4, mode):
+    """K6 in every mode with G = 1..8, rows and words that are not multiples
+    of the tile (4 x 512), a row narrower than one staged run (13 words, so
+    the lane roll wraps more than once) and wrap-around tables."""
+    rng = np.random.default_rng(th * w4)
+    T, ng, rows = 5, 11, 2 * (th + 16)
+    SL = th + 8
+    buf = torch.as_tensor(rng.integers(-(2**31), 2**31 - 1, (rows, w4), dtype=np.int64).astype(np.int32), device=dev)
+    tbl = torch.as_tensor(
+        np.concatenate([rng.integers(0, SL, (ng, T)), rng.integers(0, rows - SL + 1, (ng, T)),
+                        rng.integers(-3 * w4, 3 * w4, (ng, T))], axis=1).astype(np.int32),
+        device=dev,
+    )
+    for group in range(1, 9):
+        got = exactrow_kernel.exactrow_accumulate(tbl, buf, mode, group, th)
+        ref = exactrow_kernel.exactrow_accumulate_plain(tbl, buf, mode, group, th)
+        assert torch.equal(got, ref), group
 
 
 def test_dispatcher_dedup_on_card(dev):

@@ -30,6 +30,9 @@ from kbmod_tpu_torch.ops import search_plan
 from kbmod_tpu_torch.ops.search import EncodedPlanes, trajectory_offsets
 from kbmod_tpu_torch.ops.search_encoded import encoded_route, search_topk_encoded
 from kbmod_tpu_torch.ops.search_encoded_kernel import (
+    K4_TILE_COLS,
+    K4_TILE_ROWS,
+    k4_staging,
     search_encoded,
     search_grouped,
     search_paired,
@@ -379,3 +382,136 @@ def test_encoded_gathers_match_jax(bits):
     np.testing.assert_array_equal(got[2].numpy(), np.asarray(ref[2]))
     for g, r in zip(got[:2], ref[:2]):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-6, atol=1e-6)
+
+
+def _rank_insert_in_order(top, topi, nv, ni):
+    """rank_insert<KB, false>: insert below every entry >= nv (candidates
+    arrive in index order)."""
+    K = top.shape[0]
+    p = (top >= nv[None]).sum(axis=0)
+    k = np.arange(K)[:, None]
+    shifted, shiftedi = np.concatenate([top[:1], top[:-1]]), np.concatenate([topi[:1], topi[:-1]])
+    top = np.where(k == p, nv[None], np.where(k > p, shifted, top))
+    topi = np.where(k == p, ni, np.where(k > p, shiftedi, topi))
+    return top.astype(np.float32), topi
+
+
+def _k4_replay(psi, phi, dxs, dys, min_obs, min_lh, em, *, x_min, x_max, y_min, y_max, k_results,
+               gate_min_obs=True, gate_min_lh=False, cand_offset=0):
+    """The new K4 (csrc/search_topk_encoded.cu) replayed in numpy from its
+    host layout: per block of K4_TILE_ROWS x 256 window pixels, per batch of
+    8 candidates in index order and per step, stage each member's window in
+    16-byte chunks (zero outside the image), read every thread's word (two
+    columns) at its member offset, joining two words with a funnel shift
+    where the offset is odd, sum psi, phi and the counts as 16-bit fields,
+    then decode and rank-insert in index order into the output map."""
+    T, H, W = psi.shape
+    Wp = -(-W // 8) * 8
+    pairs = np.zeros((T, H, Wp), np.uint64)
+    pairs[:, :, :W] = psi.astype(np.uint64) | (phi.astype(np.uint64) << 8)
+    st = k4_staging(dxs, dys, x_min, y_min)
+    starts, lay, off = st["starts"], st["lay"], st["off"]
+    ox, oy = dxs.astype(np.int64) + x_min, dys.astype(np.int64) + y_min
+    C = len(ox)
+    SH, SW, K = y_max - y_min, x_max - x_min, k_results
+    P, F, M32 = 0x00FF00FF, 0x00010001, 0xFFFFFFFF
+    psi_s, psi_d = np.float32(em[1]), np.float32(em[0] - em[1])
+    phi_s, phi_d = np.float32(em[3]), np.float32(em[2] - em[3])
+    top = np.full((K, SH, SW), -np.finfo(np.float32).max, np.float32)
+    topi = np.full((K, SH, SW), -1, np.int64)
+    rows, words = np.arange(K4_TILE_ROWS)[:, None], np.arange(K4_TILE_COLS // 2)[None, :]
+    for i0 in range(0, SH, K4_TILE_ROWS):
+        for col0 in range(0, SW, K4_TILE_COLS):
+            for b, c0 in enumerate(starts):
+                n = min(8, C - c0)
+                ap, af, ao = (np.zeros((8,) + np.broadcast(rows, words).shape, np.uint64) for _ in range(3))
+                for t in range(T):
+                    nslab, nrows, pitch, y, x = (int(v) for v in lay[b, t])
+                    assert pitch % 8 == 0 and nslab * nrows * pitch <= st["buf_elems"]
+                    buf = np.zeros(nslab * nrows * pitch, np.uint64)
+                    for sr in range(nslab * nrows):
+                        if nslab == 1:
+                            yy, xx = i0 + y + sr, col0 + x
+                        else:
+                            m, r = divmod(sr, nrows)
+                            yy, xx = i0 + oy[c0 + m, t] + r, col0 + (ox[c0 + m, t] & ~7)
+                        assert xx % 8 == 0  # chunks lie wholly inside or outside the plane
+                        xs = xx + np.arange(pitch)
+                        ok = (0 <= yy < H) & (xs >= 0) & (xs < Wp)
+                        buf[sr * pitch:(sr + 1) * pitch] = np.where(ok, pairs[t, min(max(yy, 0), H - 1),
+                                                                               np.clip(xs, 0, Wp - 1)], 0)
+                    w32 = buf[0::2] | (buf[1::2] << 16)
+                    for m in range(n):
+                        e = off[b, t, m] + 2 * words + rows * pitch
+                        if off[b, t, m] % 2:  # a funnel shift of the two words around the pair
+                            assert ((e + 1) >> 1).max() < len(w32)
+                            w = ((w32[(e - 1) >> 1] >> 16) | (w32[(e + 1) >> 1] << 16)) & M32
+                        else:
+                            w = w32[e >> 1]
+                        pv, fv = w & P, (w >> 8) & P
+                        ind = ((pv + P) >> 8) & ((fv + P) >> 8) & F
+                        ap[m] += pv & (ind * 0xFF)
+                        af[m] += fv & (ind * 0xFF)
+                        ao[m] += ind
+                for p in range(2):
+                    i, j = i0 + rows + 0 * words, col0 + 2 * words + p + 0 * rows
+                    live = (i < SH) & (j < SW)
+                    ii, jj = i[live], j[live]
+                    for m in range(n):
+                        c = c0 + m
+                        obs = ((ao[m] >> (16 * p)) & 0xFFFF)[live]
+                        fobs = obs.astype(np.float32)
+                        ps = psi_s * ((ap[m] >> (16 * p)) & 0xFFFF)[live].astype(np.float32) + psi_d * fobs
+                        fs = phi_s * ((af[m] >> (16 * p)) & 0xFFFF)[live].astype(np.float32) + phi_d * fobs
+                        with np.errstate(divide="ignore", invalid="ignore"):
+                            lh = np.where(fs > 0, ps / np.sqrt(fs.astype(np.float64)).astype(np.float32),
+                                          np.float32(-1)).astype(np.float32)
+                        ok = np.ones(len(lh), bool)
+                        if gate_min_obs:
+                            ok &= fobs >= min_obs
+                        if gate_min_lh:
+                            ok &= lh >= min_lh
+                        nv = np.where(ok, lh, -np.inf).astype(np.float32)
+                        top[:, ii, jj], topi[:, ii, jj] = _rank_insert_in_order(
+                            top[:, ii, jj], topi[:, ii, jj], nv, cand_offset + c)
+    return top, topi.astype(np.int32)
+
+
+K4_REPLAY_CASES = {
+    "slabs": dict(vmax=40.0),  # columns spread: one slab per member
+    "box": dict(vmax=0.6),  # windows overlap: one box over the batch
+    "edges": dict(vmax=40.0, x_min=-9, x_max=300, y_min=-5, y_max=19),  # two column tiles, past every edge
+    "gates": dict(vmax=8.0, gate_min_lh=True, min_lh=0.5, k_results=5, cand_offset=100),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K4_REPLAY_CASES))
+def test_k4_replay_matches_twin_and_pallas(case):
+    """The new K4's index arithmetic, replayed in numpy, bit-equal to the
+    twin (batch boundaries at 8 and 16 of 19 candidates, in index order,
+    exact ties included), and to the JAX Pallas K4 in interpret mode within
+    the encoded tolerance on the windows it takes."""
+    T, H, W, C = 6, 14, 37, 19
+    kw = dict(K4_REPLAY_CASES[case])
+    vmax = kw.pop("vmax")
+    min_lh = kw.pop("min_lh", 0.0)
+    kw = dict(dict(x_min=0, x_max=W, y_min=0, y_max=H, k_results=4), **kw)
+    psi, phi = _codes(T, H, W, 8, seed=41)
+    dxs, dys = _offsets(C, T, seed=42, vmax=vmax)
+    dys = dys // 3
+    assert (dxs % 2 == 1).any() and (dxs % 2 == 0).any()
+    lay = k4_staging(dxs, dys, kw["x_min"], kw["y_min"])["lay"]
+    if case == "box":
+        assert (lay[..., 0] == 1).any()
+    if case in ("slabs", "edges"):
+        assert (lay[..., 0] > 1).any()
+    got = _k4_replay(psi, phi, dxs, dys, 3.0, min_lh, EM, **kw)
+    twin = search_topk_encoded_shift(torch.as_tensor(psi), torch.as_tensor(phi), torch.as_tensor(dxs),
+                                     torch.as_tensor(dys), 3.0, min_lh, EM, **kw)
+    np.testing.assert_array_equal(got[1], twin[1].numpy())
+    np.testing.assert_array_equal(got[0], twin[0].numpy())
+    if case in ("box", "slabs"):
+        ref = jsp.search_topk_pallas_encoded(
+            jnp.asarray(psi), jnp.asarray(phi), jnp.asarray(dxs), jnp.asarray(dys), jnp.float32(3.0),
+            jnp.float32(min_lh), jnp.asarray(EM), interpret=True, **kw)
+        _assert_topk_close(ref, got, _lh_of(psi, phi, EM, dxs, dys, kw))

@@ -24,7 +24,12 @@ from kbmod_tpu_torch.ops.search_encoded_kernel import (
     K5_MAX_T,
     K5_TILE_COLS,
     K5_TILE_ROWS,
+    PAIRED_MAX_T,
+    K4_CHUNK,
+    K4_TILE_COLS,
+    K4_TILE_ROWS,
     k3_staging,
+    k4_staging,
     k5_staging,
 )
 from kbmod_tpu_torch.ops.search_kernel import K2_CHUNK, K2_MAX_T, K2_TILE_COLS, K2_TILE_ROWS, k2_staging
@@ -175,6 +180,8 @@ def test_staging_caches_and_k5_counts_wide_sums():
 
 
 def _staging(name, dxs, dys):
+    if name == "k4":
+        return k4_staging(dxs, dys, 0, 0)
     if name == "k2":
         return k2_staging(dxs, dys, 0, 0)
     if name == "k5":
@@ -182,7 +189,7 @@ def _staging(name, dxs, dys):
     return k3_staging(dxs, dys, 0, 0, 16 if name == "k3-u16" else 8)
 
 
-@pytest.mark.parametrize("staging", ["k2", "k5", "k3-u16"])
+@pytest.mark.parametrize("staging", ["k2", "k5", "k3-u16", "k4"])
 def test_too_large_windows_raise(staging, monkeypatch):
     """The plans refuse a layout that does not fit a block's shared memory;
     with the tables' size fixed, only a smaller limit than the card's shows
@@ -226,3 +233,38 @@ def test_plans_raise_past_the_kernels_t_limit(staging):
     dxs = np.zeros((2, limit + 1), np.int32)
     with pytest.raises(ValueError, match="above the kernel"):
         _staging(staging, dxs, dxs)
+
+
+@pytest.mark.parametrize("case", ["slabs", "box", "negative_origins"])
+def test_k4_layout_batches_in_index_order(case):
+    """K4 takes the candidates in index order, 8 a batch (C = 45: five full
+    batches and one of 5), with no plan; its layout is the window layout of
+    those batches (4 x 256 tile, chunks of 8 pairs, one extra column), and
+    its shared memory the tables' header and two buffers of 2 bytes a pair.
+    Replayed at three block positions, the last past the plane's right edge."""
+    dxs, dys = _offsets(C=45, T=6, vx=200.0 if case == "slabs" else 0.5, vy=0.3 if case == "box" else 2.0)
+    x_min, y_min = (-9, -4) if case == "negative_origins" else (0, 0)
+    st = k4_staging(dxs, dys, x_min, y_min)
+    assert np.array_equal(st["starts"], np.arange(0, 45, 8))
+    assert st["lay"].shape == (6, 6, 5) and st["off"].shape == (6, 6, 8)
+    lay, off, buf_elems = search_plan.window_layout(
+        dxs + x_min, dys + y_min, st["starts"], tile_rows=K4_TILE_ROWS, tile_cols=K4_TILE_COLS, chunk=K4_CHUNK,
+        extra=1)
+    assert np.array_equal(lay, st["lay"]) and np.array_equal(off, st["off"]) and buf_elems == st["buf_elems"]
+    assert st["smem_bytes"] == HEADER + 2 * 2 * buf_elems
+    assert (st["off"][-1, :, 5:] == 0).all()  # the last batch holds 5
+    if case == "slabs":
+        assert (lay[..., 0] > 1).any()
+    if case == "box":
+        assert (lay[..., 0] == 1).all()
+    ox, oy = dxs.astype(np.int64) + x_min, dys.astype(np.int64) + y_min
+    plane = np.arange(1, 6 * 12 * 264 + 1, dtype=np.int64).reshape(6, 12, 264)
+    for i0, col0 in ((0, 0), (4, 256), (8, 512)):
+        _replay(plane, ox, oy, st["starts"], lay, off, K4_TILE_ROWS, K4_TILE_COLS, K4_CHUNK, 1, i0, col0, buf_elems)
+
+
+def test_k4_layout_raises_past_257_steps():
+    assert PAIRED_MAX_T == 257
+    k4_staging(np.zeros((2, 257), np.int32), np.zeros((2, 257), np.int32), 0, 0)
+    with pytest.raises(ValueError, match="above the kernel"):
+        k4_staging(np.zeros((2, 258), np.int32), np.zeros((2, 258), np.int32), 0, 0)
