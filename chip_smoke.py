@@ -10,7 +10,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 2. the nvcc build of every CUDA kernel, all sources compiled together;
 3. kernel checks: each kernel against its plain PyTorch twin on the card
    (K1 over PSFs from 1 x 1 to 21 x 21; K2; K3, K4 and K5 over
-   uint8/uint16 codes, T up to 300; the grouped kernels K2, K5 and K3 at
+   uint8/uint16 codes, T up to 300; K2-K5 with lists of K = 128, past the
+   64 that registers hold; the grouped kernels K2, K5 and K3 at
    T = 1,000-1,500, past the T their tables once capped; dedup; K6 in
    modes A, B and C), and each redesigned kernel's ptxas registers and
    spills;
@@ -24,17 +25,28 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    2)`` over the band (K3) and the uint8 band over a sparse 66-candidate
    list (K4). Each search is driven with the counts at 0 and read after: it
    must find the object through its kernel, with no twin run;
-6. K6's own path, the micro-benchmark script
+6. the pipeline on the same stack: two ``SearchRunner.run_search`` runs
+   with the ``SearchConfiguration`` defaults but the 41 x 41 grid (through
+   ``create_trajectory_generator``), an ECSV result file and no saved
+   config: P1 float (host sigma-G, the default clustering, sum coadds),
+   P2 uint8 with the in-kernel sigma-G pool (K5 at K = 32) and mean,
+   median and weighted coadds. Each must put the object in row 0, run
+   through K1 and K2 (P1) or K1 and K5 (P2) with no twin, write a file
+   that reads back with the same rows, and stay inside the port's memory
+   budget (``run_search.search_memory_budget``) over ``do_core_search``;
+   its phase walls and the budget against the measured peak are printed;
+7. K6's own path, the micro-benchmark script
    (``kbmod_tpu_torch.scripts.exactrow_microbench``), driven with the
    counts at 0 and read after;
-7. each kernel's time at the main path's shapes beside its twin's, its
+8. each kernel's time at the main path's shapes beside its twin's, its
    bound and (K1) cuDNN's grouped convolution, as one JSON line (K2 and K5
    at both of their main-path shapes: the full frame at K = 8 and the
-   sigma-G band at K = 32, each held against the twin); K5 through the
+   sigma-G band at K = 32, each held against the twin); K2 and K3 with
+   lists of K = 128 (kept in the maps) on the band; K5 through the
    dispatcher (dedup + K5 + expansion) at the JAX package's
    ``midscale_kernel`` shapes (T = 64, 2048 x 2048, C = 33,153, K = 8);
    and K6's three modes at the script's defaults and at NG = 3,015;
-8. as the last line, {"ok": true, "device": {...}}.
+9. as the last line, {"ok": true, "device": {...}}.
 
 Imports nothing of the JAX package.
 """
@@ -274,7 +286,7 @@ def check_k2(dev):
     # The grouped kernel's own cases: K = 64; a column spread that stages
     # one slab per member; candidate 3 copied 12 times, so its exact ties
     # span two groups; window origins outside the image with the full
-    # candidate set at K = 64.
+    # candidate set at K = 64; lists of 128, kept in the maps.
     vd, vyd = vxs.copy(), vys.copy()
     vd[70:82], vyd[70:82] = vxs[3], vys[3]
     grouped_cases = [
@@ -282,6 +294,8 @@ def check_k2(dev):
         ("wide-spread", (vxs * 12, vys * 0.2), full, 8),
         ("ties-across", (vd, vyd), full, 32),
         ("extended-k64", (vxs, vys), dict(x_min=-40, x_max=W - 20, y_min=-33, y_max=H + 5), 64),
+        ("k128", (vxs, vys), full, 128),
+        ("ties-k128", (vd, vyd), dict(x_min=-40, x_max=W - 20, y_min=-33, y_max=H + 5), 128),
     ]
     for tag, (vx, vy), bounds, K in grouped_cases:
         dx, dy = (torch.as_tensor(a, device=dev) for a in trajectory_offsets(vx, vy, times))
@@ -292,7 +306,7 @@ def check_k2(dev):
         torch.cuda.synchronize()
         err, nonzero = _assert_k2_equal(f"{tag} K={K}", got, ref)
         worst = max(worst, err)
-        log(f"K2 check {tag:12s} K={K:2d}: ok (indices equal, max |dlh| {err:.3g}, {nonzero} slots differ)")
+        log(f"K2 check {tag:12s} K={K:3d}: ok (indices equal, max |dlh| {err:.3g}, {nonzero} slots differ)")
     return worst
 
 
@@ -334,8 +348,9 @@ ENCODED_CONFIGS = [
 def check_encoded(dev):
     """K3, K4 and K5 against the encoded twin over K2's cases (window,
     gates, padding candidates, duplicated candidates for exact ties) at
-    K = 1, 8 and 32; then dedup + expansion against the twin without
-    dedup. Returns the largest |kernel - twin| lh per kernel."""
+    K = 1, 8, 32 and 64, and the full window at K = 128 too; then dedup +
+    expansion against the twin without dedup. Returns the largest
+    |kernel - twin| lh per kernel."""
     from kbmod_tpu_torch.ops import search_encoded_kernel as ek
     from kbmod_tpu_torch.ops.search import trajectory_offsets
     from kbmod_tpu_torch.ops.search_encoded import search_topk_encoded
@@ -368,7 +383,7 @@ def check_encoded(dev):
         ]
         long_t = T > 64
         for tag, bounds, opt in cases:
-            for K in ((1, 8, 32, 64) if tag == "full" or not long_t else (8,)):
+            for K in ((1, 8, 32, 64, 128) if tag == "full" else (8,) if long_t else (1, 8, 32, 64)):
                 opt_k = dict(opt)
                 min_obs = opt_k.pop("min_obs", 3.0)
                 min_lh = opt_k.pop("min_lh", 0.0)
@@ -396,7 +411,7 @@ def check_encoded(dev):
                         col = [v for v in idx[:, i, j] if v in dup]
                         if col != sorted(col):
                             raise AssertionError(f"{kernel} tie order at ({i},{j}): {col}")
-                log(f"{kernel} check u{bits} T={T:3d} {tag:12s} K={K:2d}: ok "
+                log(f"{kernel} check u{bits} T={T:3d} {tag:12s} K={K:3d}: ok "
                     f"(indices equal, max |dlh| {err:.3g}, {nonzero} slots differ)")
 
     # Dedup: slow candidates share offset sequences; dedup + K5/K4 +
@@ -733,6 +748,78 @@ def quantized_path(stack, obj, cands, obj_c, band=256):
     return searches, sparse, total
 
 
+def pipeline_path(stack, obj, card, dev):
+    """The pipeline on the main stack: P1 (float) and P2 (uint8, in-kernel
+    sigma-G pool), each a ``SearchRunner().run_search`` with the counts at 0
+    just before and read just after. Returns (launches summed over both,
+    {run: phase walls}, {run: (budget, peak)})."""
+    import tempfile
+
+    from kbmod_tpu_torch.configuration import SearchConfiguration
+    from kbmod_tpu_torch.results import Results
+    from kbmod_tpu_torch.run_search import SearchRunner, search_memory_budget
+
+    generator = {"name": "KBMODV1SearchConfig", "v_arr": [5.0, 45.0, 41], "ang_arr": [0.5, 0.5, 41],
+                 "average_angle": 0.0}
+    runs = {
+        "P1 float": (dict(), ("psi_phi_conv", "search_topk")),
+        "P2 uint8": (dict(encode_num_bytes=1, gpu_filter=True, coadds=["mean", "median", "weighted"]),
+                     ("psi_phi_conv", "search_grouped")),
+    }
+    total, walls, memory = {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for tag, (over, kernels) in runs.items():
+            path = f"{tmp}/{tag.split()[0]}.ecsv"
+            config = SearchConfiguration(dict(generator_config=generator, result_filename=path, save_config=False,
+                                              **over))
+            runner = SearchRunner()
+            core = runner.do_core_search
+            mem = {}
+
+            def measured(config, stack, trj_generator):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                out = core(config, stack, trj_generator)
+                torch.cuda.synchronize()
+                mem["peak"] = torch.cuda.max_memory_allocated() - base
+                mem["budget"] = search_memory_budget(config, stack, len(trj_generator), dev)
+                return out
+
+            runner.do_core_search = measured
+            log(f"pipeline {tag}: window: the full {stack.height} x {stack.width} frame")
+            reset_counts()
+            t0 = time.perf_counter()
+            keep = runner.run_search(config, stack)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches, twin_calls = read_counts()
+            back = Results.read_table(path)
+            walls[tag] = {k: (v[1] - v[0]) * 1e3 for k, v in runner.phase_times.items()}
+            memory[tag] = (mem["budget"]["total"], mem["peak"])
+            log(f"pipeline {tag}: {len(keep)} rows in {wall:.2f} s, row 0 (x={keep['x'][0]}, y={keep['y'][0]}, "
+                f"vx={keep['vx'][0]:.4f}, vy={keep['vy'][0]:.4f}, lh={keep['likelihood'][0]:.3f}, "
+                f"obs={keep['obs_count'][0]}); launches {launches}, twin calls {twin_calls}")
+            log(f"pipeline {tag} phase walls (ms): "
+                + ", ".join(f"{k} {v:.1f}" for k, v in walls[tag].items()) + f"; {card}")
+            log(f"pipeline {tag} memory over do_core_search: budget {mem['budget']['total']} bytes "
+                f"({ {k: v for k, v in mem['budget'].items() if k != 'total'} }), measured peak {mem['peak']} bytes "
+                f"above the {torch.cuda.memory_allocated()} allocated before; {card}")
+            row0 = (keep["x"][0], keep["y"][0])
+            if row0 != (obj.x, obj.y) or abs(keep["vx"][0] - obj.vx) > 1e-4 or abs(keep["vy"][0] - obj.vy) > 1e-4:
+                raise AssertionError(f"pipeline {tag}: row 0 {row0} is not the injected object {obj}")
+            if min(launches[k] for k in kernels) <= 0 or max(twin_calls.values()) != 0:
+                raise AssertionError(f"pipeline {tag}: not through {kernels} alone: {launches}, {twin_calls}")
+            if len(back) != len(keep) or any(not np.array_equal(back[k], keep[k])
+                                              for k in ("x", "y", "vx", "vy", "obs_count", "likelihood")):
+                raise AssertionError(f"pipeline {tag}: the ECSV file does not read back with the same rows")
+            if mem["budget"]["total"] < mem["peak"]:
+                raise AssertionError(f"pipeline {tag}: peak {mem['peak']} above the budget {mem['budget']}")
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+    return total, walls, memory
+
+
 # ----------------------------------------------------------------------
 # Kernel times at the main path's shapes
 # ----------------------------------------------------------------------
@@ -806,12 +893,14 @@ def _staged_traffic(lay, px_bytes, SH, SW, tile_rows, tile_cols, ms):
             f"{slabs:.1%} of (group, t) steps stage one slab per member)")
 
 
-def time_k2(search, cands, dev, bounds=None, K=8):
+def time_k2(search, cands, dev, bounds=None, K=8, twin_rows=None):
     """K2 at a float search's shapes and settings (min_obs T/2, min_lh 10
     with the insertion gated on it, as the full-frame search with
     results_per_pixel 8 and the sigma-G band search with its pool of 4 x 8
     run): median of 3 launches by CUDA events, the twin once, the bound.
-    ``bounds`` defaults to the full frame."""
+    ``bounds`` defaults to the full frame; ``twin_rows`` holds the kernel to
+    the twin on that many rows of the window only (a long list makes the
+    twin slow)."""
     from kbmod_tpu_torch.ops.search import trajectory_offsets
     from kbmod_tpu_torch.ops.search_kernel import _lib as _k2_lib
     from kbmod_tpu_torch.ops.search_kernel import k2_staging, search_topk, search_topk_shift
@@ -830,11 +919,15 @@ def time_k2(search, cands, dev, bounds=None, K=8):
     got = search_topk(*args, **kw)
     ms = event_ms(lambda: search_topk(*args, **kw), 3)
     log(f"K2 timed ({SH}x{SW}, K={K}); clocks (sm, max sm, power, temperature): {clocks()}")
+    if twin_rows:
+        kw = dict(kw, y_max=bounds["y_min"] + twin_rows)
+        got = search_topk(*args, **kw)
     t0 = time.perf_counter()
     ref = search_topk_shift(*args, **kw)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    err, _ = _assert_k2_equal(f"main-path shapes {SH}x{SW} K={K}", got, ref)
+    rows = kw["y_max"] - kw["y_min"]
+    err, _ = _assert_k2_equal(f"main-path shapes {SH}x{SW} K={K} (twin over {rows} rows)", got, ref)
     st = k2_staging(dxs.cpu().numpy(), dys.cpu().numpy(), bounds["x_min"], bounds["y_min"])
     log(f"K2 ({SH}x{SW}, K={K}): {len(st['starts'])} groups, {st['smem_bytes']} bytes of shared memory, "
         f"{_k2_lib().kb_search_topk_blocks_per_sm(K, st['smem_bytes'])} blocks per SM; "
@@ -887,10 +980,11 @@ def _encoded_bound(planes, dx_t, dy_t, bounds, K):
     return bound(nbytes, (8 + K) * SH * SW * C, adds * n_samples), n_samples
 
 
-def time_encoded(kernel, planes, times, cands, bounds, K, min_obs, min_lh, dev):
+def time_encoded(kernel, planes, times, cands, bounds, K, min_obs, min_lh, dev, twin_rows=None):
     """One encoded kernel at a main-path search's shapes and settings
     (gate on min_lh, as those searches run): median of 3 launches by CUDA
-    events, the twin once, the bound."""
+    events, the twin once (on ``twin_rows`` rows of the window only, when
+    given), the bound."""
     from kbmod_tpu_torch.ops import _build
     from kbmod_tpu_torch.ops import search_encoded_kernel as ek
     from kbmod_tpu_torch.ops.search import trajectory_offsets
@@ -908,9 +1002,13 @@ def time_encoded(kernel, planes, times, cands, bounds, K, min_obs, min_lh, dev):
     got = run()
     ms = event_ms(run, 3)
     log(f"{kernel} timed; clocks (sm, max sm, power, temperature): {clocks()}")
+    kw_twin = kw
+    if twin_rows:
+        kw_twin = dict(kw, y_max=bounds["y_min"] + twin_rows)
+        got = wrapper(planes, dx_t, dy_t, min_obs, min_lh, **kw_twin, **extra)
     t0 = time.perf_counter()
     ref = ek.search_topk_encoded_shift(planes.psi_codes, planes.phi_codes, dx_t, dy_t, min_obs, min_lh,
-                                       planes.em, **kw)
+                                       planes.em, **kw_twin)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     err, _ = _assert_k2_equal("main-path shapes", got, ref, kernel)
@@ -1033,6 +1131,7 @@ def main():
     stack, obj, cands, obj_c = make_main_stack(args.seed)
     search, launches_f = main_path(stack, obj, cands)
     searches, sparse, launches_q = quantized_path(stack, obj, cands, obj_c)
+    launches_p, _, _ = pipeline_path(stack, obj, card, dev)
     launches_k6 = k6_path()
     k1 = time_k1(stack, dev)
     T, H, W = len(stack.sci), *np.asarray(stack.sci[0]).shape
@@ -1042,6 +1141,8 @@ def main():
     k2 = time_k2(search, cands, dev)
     # The sigma-G band search's K2 launch: a pool of 4 x 8, the same gates.
     k2_band = time_k2(search, cands, dev, band, 32)
+    # Lists of 128, kept in the maps, on the band with the same gates.
+    k2_long = time_k2(search, cands, dev, band, 128, twin_rows=16)
     del search
     u8 = searches["u8"]._eval_planes()[0]
     u16 = searches["u16"]._eval_planes()[0]
@@ -1050,14 +1151,16 @@ def main():
     # The sigma-G band search's K5 launch: K = 32, the same gates.
     k5_band = time_encoded("K5", u8, times, cands, band, 32, float(T // 2), 10.0, dev)
     k3 = time_encoded("K3", u16, times, cands, band, 8, float(T // 2), 10.0, dev)
+    k3_long = time_encoded("K3", u16, times, cands, band, 128, float(T // 2), 10.0, dev, twin_rows=16)
     k4 = time_encoded("K4", u8, times, sparse, band, 8, float(T // 2), 10.0, dev)
     del searches, u8, u16
     torch.cuda.empty_cache()
     mid = time_midscale(dev)
     k6 = time_k6(dev)
     for name, r in (("K1 psi_phi_conv", k1), ("K2 search_topk", k2), ("K2 search_topk, band", k2_band),
-                    ("K3 search_encoded", k3), ("K4 search_paired", k4), ("K5 search_grouped", k5),
-                    ("K5 search_grouped, band", k5_band)):
+                    ("K2 search_topk, band, K = 128", k2_long), ("K3 search_encoded", k3),
+                    ("K3 search_encoded, band, K = 128", k3_long), ("K4 search_paired", k4),
+                    ("K5 search_grouped", k5), ("K5 search_grouped, band", k5_band)):
         log(f"{name} at {r['shape']}: {r['ms']:.3f} ms, twin {r['plain_ms']:.1f} ms, "
             f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}), library {r['library_ms']}"
             + (f", {r['evals_per_s']:.4g} evals/s" if "evals_per_s" in r else ""))
@@ -1070,13 +1173,13 @@ def main():
                     ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                     library_ms=r["library_ms"])
 
-    launches = {k: launches_f[k] + launches_q[k] for k in launches_f}
+    launches = {k: launches_f[k] + launches_q[k] + launches_p.get(k, 0) for k in launches_f}
     entries = [
         entry("psi_phi_conv", "psi_phi_conv.cu", "conv_pallas.py:32", launches["psi_phi_conv"], err_k1, k1),
         entry("search_topk", "search_topk.cu", "search_pallas.py:182", launches["search_topk"],
-              max(err_k2, k2_band["err"], err_long["K2"]), k2),
+              max(err_k2, k2_band["err"], k2_long["err"], err_long["K2"]), k2),
         entry("search_encoded", "search_topk_encoded_grouped.cu", "search_pallas.py:505", launches["search_encoded"],
-              max(err_enc["K3"], err_long["K3"]), k3),
+              max(err_enc["K3"], k3_long["err"], err_long["K3"]), k3),
         entry("search_paired", "search_topk_encoded.cu", "search_pallas.py:916", launches["search_paired"],
               err_enc["K4"], k4),
         entry("search_grouped", "search_topk_grouped.cu", "search_pallas.py:1493", launches["search_grouped"],

@@ -66,6 +66,36 @@ __device__ __forceinline__ float gated(float lh, int obs, bool cand_ok, float mi
     return ok ? lh : -INFINITY;
 }
 
+// The list length (template KB) of the instantiation for lists longer than
+// 64: a pixel's list stays in the (K_out, SH, SW) maps themselves, slot k at
+// o + k * plane, and takes any K_out the maps' memory holds.
+constexpr int kMapList = 0;
+
+// Whether slot k of a list in the maps ranks above (nv, ni), by
+// rank_insert's rule.
+template <bool by_index>
+__device__ __forceinline__ bool map_above(const float* top_lh, const int* top_idx, size_t at, float nv, int ni) {
+    const float v = top_lh[at];
+    return by_index ? (v > nv || (v == nv && top_idx[at] < ni)) : (v >= nv);
+}
+
+// rank_insert on a list kept in the maps: the same insertion point p and the
+// same shift. The list is sorted by the rule, so when its last slot ranks
+// above the new entry every slot does and nothing moves.
+template <bool by_index>
+__device__ __forceinline__ void rank_insert_map(float* top_lh, int* top_idx, size_t o, size_t plane, int K_out,
+                                                float nv, int ni) {
+    if (map_above<by_index>(top_lh, top_idx, o + (size_t)(K_out - 1) * plane, nv, ni)) return;
+    int p = 0;
+    for (int k = 0; k < K_out - 1; ++k) p += map_above<by_index>(top_lh, top_idx, o + (size_t)k * plane, nv, ni);
+    for (int k = K_out - 1; k > p; --k) {
+        top_lh[o + (size_t)k * plane] = top_lh[o + (size_t)(k - 1) * plane];
+        top_idx[o + (size_t)k * plane] = top_idx[o + (size_t)(k - 1) * plane];
+    }
+    top_lh[o + (size_t)p * plane] = nv;
+    top_idx[o + (size_t)p * plane] = ni;
+}
+
 // Read pixel (i, j)'s top list from the (K_out, SH, SW) maps; slots past
 // K_out are empty.
 template <int KB>
@@ -112,6 +142,18 @@ __device__ __forceinline__ void insert_member(float (&top)[KB], int (&tidx)[KB],
     rank_insert<KB, by_index>(top, tidx, gated(lh, obs, ok, D.min_obs, D.min_lh, D.gate_min_obs, D.gate_min_lh), gi);
 }
 
+// insert_member for a list kept in the maps (kMapList): pixel at flat index
+// o, slot k at o + k * plane.
+template <bool by_index = true>
+__device__ __forceinline__ void insert_member_map(float* top_lh, int* top_idx, size_t o, size_t plane, int K_out,
+                                                  int ps, int fs, int obs, bool ok, int gi, const Decode& D,
+                                                  float psi_d, float phi_d) {
+    const float fobs = (float)obs;
+    const float lh = likelihood(decode_sum(ps, fobs, D.psi_scale, psi_d), decode_sum(fs, fobs, D.phi_scale, phi_d));
+    rank_insert_map<by_index>(top_lh, top_idx, o, plane, K_out,
+                              gated(lh, obs, ok, D.min_obs, D.min_lh, D.gate_min_obs, D.gate_min_lh), gi);
+}
+
 // Resident blocks per SM of `kernel` at NT threads a block with smem bytes
 // of dynamic shared memory, or -1.
 template <int NT, typename Kernel>
@@ -135,7 +177,8 @@ int launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t s, Args... args) 
 
 }  // namespace kb_encoded
 
-// Instantiate a templated call for the top-K list length that serves K_out.
+// Instantiate a templated call for the top-K list length that serves K_out:
+// a register list up to 64, the list in the maps past it.
 #define KB_DISPATCH(K_out, CALL)  \
     if ((K_out) <= 1) CALL(1);    \
     if ((K_out) <= 2) CALL(2);    \
@@ -143,4 +186,5 @@ int launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t s, Args... args) 
     if ((K_out) <= 8) CALL(8);    \
     if ((K_out) <= 16) CALL(16);  \
     if ((K_out) <= 32) CALL(32);  \
-    if ((K_out) <= 64) CALL(64);
+    if ((K_out) <= 64) CALL(64);  \
+    CALL(kb_encoded::kMapList);

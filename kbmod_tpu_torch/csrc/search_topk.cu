@@ -48,7 +48,9 @@
 //   leaves a sum that starts at +0.0 unchanged), so the result is bit-equal;
 // - the top-K lives in the output map, read and written once per group, and
 //   members insert by (lh desc, index asc) (rank_insert<KB, true>), so the
-//   plan's order does not change the result.
+//   plan's order does not change the result. A list longer than 64 does not
+//   fit the registers: that instantiation (kMapList) inserts into the maps
+//   in place (rank_insert_map), so K is bounded by the maps' memory alone.
 
 #include <cuda_runtime.h>
 #include <float.h>
@@ -237,17 +239,21 @@ __global__ void __launch_bounds__(Shape<KB>::kThreads, Shape<KB>::kMinBlocks)
         }
 
         if (!active) continue;
+        // A list of up to 64 in registers, a longer one in the maps.
+        constexpr bool in_map = KB == kb_encoded::kMapList;
 #pragma unroll
         for (int r = 0; r < R; ++r) {
             const int i = ir + r;
             if (i >= SH) break;
-            float top[KB];
-            int tidx[KB];
+            float top[in_map ? 1 : KB];
+            int tidx[in_map ? 1 : KB];
+            if constexpr (!in_map) {
 #pragma unroll
-            for (int k = 0; k < KB; ++k) {
-                const size_t o = ((size_t)k * SH + i) * SW + j;
-                top[k] = k < K_out ? top_lh[o] : -FLT_MAX;
-                tidx[k] = k < K_out ? top_idx[o] : -1;
+                for (int k = 0; k < KB; ++k) {
+                    const size_t o = ((size_t)k * SH + i) * SW + j;
+                    top[k] = k < K_out ? top_lh[o] : -FLT_MAX;
+                    tidx[k] = k < K_out ? top_idx[o] : -1;
+                }
             }
 #pragma unroll
             for (int m = 0; m < kG; ++m) {
@@ -255,15 +261,21 @@ __global__ void __launch_bounds__(Shape<KB>::kThreads, Shape<KB>::kMinBlocks)
                     const int obs = (ao[m][r / 2] >> (16 * (r & 1))) & 0xFFFF;
                     const float lh = likelihood(ap[m][r], af[m][r]);
                     const float nv = gated(lh, obs, cand_ok[c0 + m] != 0, min_obs, min_lh, gate_min_obs, gate_min_lh);
-                    rank_insert<KB, true>(top, tidx, nv, gidx[c0 + m]);
+                    if constexpr (in_map)
+                        kb_encoded::rank_insert_map<true>(top_lh, top_idx, (size_t)i * SW + j, (size_t)SH * SW, K_out,
+                                                          nv, gidx[c0 + m]);
+                    else
+                        rank_insert<KB, true>(top, tidx, nv, gidx[c0 + m]);
                 }
             }
+            if constexpr (!in_map) {
 #pragma unroll
-            for (int k = 0; k < KB; ++k) {
-                if (k < K_out) {
-                    const size_t o = ((size_t)k * SH + i) * SW + j;
-                    top_lh[o] = top[k];
-                    top_idx[o] = tidx[k];
+                for (int k = 0; k < KB; ++k) {
+                    if (k < K_out) {
+                        const size_t o = ((size_t)k * SH + i) * SW + j;
+                        top_lh[o] = top[k];
+                        top_idx[o] = tidx[k];
+                    }
                 }
             }
         }
@@ -304,6 +316,7 @@ int kb_search_topk_blocks_per_sm(int K_out, int smem) {
     if (K_out <= 16) KB_OCC(16);
     if (K_out <= 32) KB_OCC(32);
     if (K_out <= 64) KB_OCC(64);
+    KB_OCC(kb_encoded::kMapList);
 #undef KB_OCC
     return n;
 }
@@ -315,8 +328,9 @@ int kb_search_topk_blocks_per_sm(int K_out, int smem) {
 // (NG + 1,) group bounds, 1..8 candidates a group; lay: (NG, T, 5) and off:
 // (NG, T, 8) int32, the window layout (csrc/stage_window.cuh) for buffers of
 // buf_elems pixels (a multiple of 16); top_lh, top_idx: (K_out, SH, SW).
-// K_out <= 64, T < 65536. Launches on `stream`; returns cudaGetLastError()
-// (cudaErrorInvalidValue for what it cannot run).
+// K_out >= 1 (past 64 the list stays in the maps), T < 65536. Launches on
+// `stream`; returns cudaGetLastError() (cudaErrorInvalidValue for what it
+// cannot run).
 int kb_search_topk(const float* psi, const float* phi, const uint8_t* valid, const int* ox, const int* oy,
                    const int* gidx, const uint8_t* cand_ok, const int* gstart, const int* lay, const int* off,
                    int NG, int T, int H, int W, int Wp, int SH, int SW, int K_out, int buf_elems,
@@ -346,6 +360,7 @@ int kb_search_topk(const float* psi, const float* phi, const uint8_t* valid, con
     if (K_out <= 16) KB_LAUNCH(16);
     if (K_out <= 32) KB_LAUNCH(32);
     if (K_out <= 64) KB_LAUNCH(64);
+    KB_LAUNCH(kb_encoded::kMapList);
 #undef KB_LAUNCH
     return (int)cudaErrorInvalidValue;
 }

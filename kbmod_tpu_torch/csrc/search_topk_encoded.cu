@@ -52,6 +52,7 @@
 //   version that kept each thread's four lists in registers for the block's
 //   life ran 36% slower at K = 8 and 14% at K = 32: the lists take the
 //   registers that buy blocks an SM.
+//   Past K = 64 (kMapList) each member inserts into the maps in place.
 //
 // What the card showed (PERF.md): on the main path's sparse band the
 // time hardly moves with the shape around the loop: one row a thread in
@@ -181,17 +182,26 @@ __global__ void __launch_bounds__(kThreads, KB <= 8 ? 3 : (KB <= 32 ? 2 : 1))
                 const int j = jc + p;
                 if (i >= SH || j >= SW) continue;
                 const int sh = 16 * p;
-                float top[KB];
-                int tidx[KB];
-                load_top(top, tidx, K_out, SH, SW, i, j, top_lh, top_idx);
+                // A list of up to 64 in registers, a longer one in the maps.
+                constexpr bool in_map = KB == kb_encoded::kMapList;
+                float top[in_map ? 1 : KB];
+                int tidx[in_map ? 1 : KB];
+                if constexpr (!in_map) load_top(top, tidx, K_out, SH, SW, i, j, top_lh, top_idx);
 #pragma unroll
                 for (int m = 0; m < kG; ++m) {
-                    if (m < n)
-                        insert_member<KB, false>(top, tidx, (int)((ap[m][r] >> sh) & 0xFFFFu),
-                                                 (int)((af[m][r] >> sh) & 0xFFFFu), (int)((ao[m][r] >> sh) & 0xFFFFu),
-                                                 cand_ok[c0 + m] != 0, gidx[c0 + m], D, psi_d, phi_d);
+                    if (m < n) {
+                        const int ps = (int)((ap[m][r] >> sh) & 0xFFFFu), fs = (int)((af[m][r] >> sh) & 0xFFFFu);
+                        const int obs = (int)((ao[m][r] >> sh) & 0xFFFFu);
+                        if constexpr (in_map)
+                            kb_encoded::insert_member_map<false>(top_lh, top_idx, (size_t)i * SW + j, (size_t)SH * SW,
+                                                                 K_out, ps, fs, obs, cand_ok[c0 + m] != 0, gidx[c0 + m],
+                                                                 D, psi_d, phi_d);
+                        else
+                            insert_member<KB, false>(top, tidx, ps, fs, obs, cand_ok[c0 + m] != 0, gidx[c0 + m], D,
+                                                     psi_d, phi_d);
+                    }
                 }
-                store_top(top, tidx, K_out, SH, SW, i, j, top_lh, top_idx);
+                if constexpr (!in_map) store_top(top, tidx, K_out, SH, SW, i, j, top_lh, top_idx);
             }
         }
     }
@@ -232,7 +242,8 @@ int kb_search_paired_blocks_per_sm(int K_out, int smem) {
 // bounds 0, 8, 16, ..., C; lay (NB, T, 5) and off (NB, T, 8) int32, the
 // window layout (csrc/stage_window.cuh) for buffers of buf_elems pairs (a
 // multiple of 8) with one extra column on each window's right; top_lh,
-// top_idx: (K_out, SH, SW). K_out <= 64, T <= 257. Launches on `stream`;
+// top_idx: (K_out, SH, SW). K_out >= 1 (past 64 the list stays in the
+// maps), T <= 257. Launches on `stream`;
 // returns cudaGetLastError() (cudaErrorInvalidValue for what it cannot run).
 int kb_search_paired(const void* pairs, const int* ox, const int* oy, const int* gidx,
                      const uint8_t* cand_ok, const int* gstart, const int* lay, const int* off, int NB, int T, int H,

@@ -62,7 +62,8 @@
 // - the group's tables sit in shared memory 64 steps at a time, so shared
 //   memory does not grow with T; stacks of at most 64 steps run an
 //   instantiation without the reload;
-// - the top-K lives in the output map, read and written once per group.
+// - the top-K lives in the output map, read and written once per group; past
+//   K = 64 (kMapList) each member inserts into the maps in place.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -211,18 +212,25 @@ __global__ void __launch_bounds__(kThreads, KB <= 8 ? 2 : 1)
         for (int r = 0; r < kR; ++r) {
             const int i = ir + r;
             if (i >= SH) break;
-            float top[KB];
-            int tidx[KB];
-            load_top(top, tidx, K_out, SH, SW, i, j, top_lh, top_idx);
+            // A list of up to 64 in registers, a longer one in the maps.
+            constexpr bool in_map = KB == kb_encoded::kMapList;
+            float top[in_map ? 1 : KB];
+            int tidx[in_map ? 1 : KB];
+            if constexpr (!in_map) load_top(top, tidx, K_out, SH, SW, i, j, top_lh, top_idx);
 #pragma unroll
             for (int m = 0; m < kG; ++m) {
                 if (m < n) {
                     const int obs = (int)((ao[m] >> (16 * r)) & 0xFFFFu);
-                    insert_member(top, tidx, (int)ap[m][r], (int)af[m][r], obs, cand_ok[c0 + m] != 0, gidx[c0 + m],
-                                  D, psi_d, phi_d);
+                    if constexpr (in_map)
+                        kb_encoded::insert_member_map(top_lh, top_idx, (size_t)i * SW + j, (size_t)SH * SW, K_out,
+                                                      (int)ap[m][r], (int)af[m][r], obs, cand_ok[c0 + m] != 0,
+                                                      gidx[c0 + m], D, psi_d, phi_d);
+                    else
+                        insert_member(top, tidx, (int)ap[m][r], (int)af[m][r], obs, cand_ok[c0 + m] != 0,
+                                      gidx[c0 + m], D, psi_d, phi_d);
                 }
             }
-            store_top(top, tidx, K_out, SH, SW, i, j, top_lh, top_idx);
+            if constexpr (!in_map) store_top(top, tidx, K_out, SH, SW, i, j, top_lh, top_idx);
         }
     }
 }

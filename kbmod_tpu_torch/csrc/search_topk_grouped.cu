@@ -41,7 +41,8 @@
 //   memory does not grow with T: holding all T steps (116 bytes a step)
 //   refused T >= 1,500 at the 41 x 41 grid's layout. Stacks of at most 64
 //   steps run an instantiation without the reload;
-// - the top-K lives in the output map, read and written once per group.
+// - the top-K lives in the output map, read and written once per group; past
+//   K = 64 (kMapList) each member inserts into the maps in place.
 //
 // Mode C of the micro-benchmark K6 (csrc/exactrow_microbench.cu) is its
 // inner loop.
@@ -203,9 +204,11 @@ __global__ void __launch_bounds__(kThreads, KB <= 8 ? 2 : 1)
             for (int p = 0; p < 2; ++p) {
                 const int j = jc + p;
                 if (i >= SH || j >= SW) continue;
-                float top[KB];
-                int tidx[KB];
-                load_top(top, tidx, K_out, SH, SW, i, j, top_lh, top_idx);
+                // A list of up to 64 in registers, a longer one in the maps.
+                constexpr bool in_map = KB == kb_encoded::kMapList;
+                float top[in_map ? 1 : KB];
+                int tidx[in_map ? 1 : KB];
+                if constexpr (!in_map) load_top(top, tidx, K_out, SH, SW, i, j, top_lh, top_idx);
 #pragma unroll
                 for (int m = 0; m < kG; ++m) {
                     if (m < n) {
@@ -219,10 +222,15 @@ __global__ void __launch_bounds__(kThreads, KB <= 8 ? 2 : 1)
                             ps = (int)((ap[m][r] >> (16 * p)) & 0xFFFFu);
                             fs = (int)((af[m][r] >> (16 * p)) & 0xFFFFu);
                         }
-                        insert_member(top, tidx, ps, fs, obs, cand_ok[c0 + m] != 0, gidx[c0 + m], D, psi_d, phi_d);
+                        if constexpr (in_map)
+                            kb_encoded::insert_member_map(top_lh, top_idx, (size_t)i * SW + j, (size_t)SH * SW, K_out,
+                                                          ps, fs, obs, cand_ok[c0 + m] != 0, gidx[c0 + m], D, psi_d,
+                                                          phi_d);
+                        else
+                            insert_member(top, tidx, ps, fs, obs, cand_ok[c0 + m] != 0, gidx[c0 + m], D, psi_d, phi_d);
                     }
                 }
-                store_top(top, tidx, K_out, SH, SW, i, j, top_lh, top_idx);
+                if constexpr (!in_map) store_top(top, tidx, K_out, SH, SW, i, j, top_lh, top_idx);
             }
         }
     }
@@ -260,7 +268,8 @@ int kb_search_grouped_blocks_per_sm(int K_out, int smem) {
 // within the plan, each group 1..8 candidates; lay: (NG, T, 5) and off:
 // (NG, T, 8) int32, the window layout (csrc/stage_window.cuh) for buffers of
 // buf_elems pairs (a multiple of 8), with one extra column on each window's
-// right; top_lh, top_idx: (K_out, SH, SW). K_out <= 64, T < 65536. Launches
+// right; top_lh, top_idx: (K_out, SH, SW). K_out >= 1 (past 64 the list stays
+// in the maps), T < 65536. Launches
 // on `stream`; returns cudaGetLastError() (cudaErrorInvalidValue for what it
 // cannot run).
 int kb_search_grouped(const void* pairs, const int* ox, const int* oy, const int* gidx,

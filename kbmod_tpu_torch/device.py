@@ -1,4 +1,5 @@
-"""Device resolution: CUDA unless the caller asks for the CPU."""
+"""Device resolution: CUDA unless the caller asks for the CPU; the card's
+free memory."""
 
 import torch
 
@@ -20,3 +21,10 @@ def resolve_device(device=None):
     elif dev.type != "cpu":
         raise ValueError(f"Unsupported device {dev}: use 'cuda' or 'cpu'.")
     return dev
+
+
+def device_free_bytes(device):
+    """Free memory of a CUDA device: what cudaMemGetInfo reports free plus
+    what PyTorch holds cached but unallocated."""
+    free, _ = torch.cuda.mem_get_info(device)
+    return free + torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)

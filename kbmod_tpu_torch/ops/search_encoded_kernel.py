@@ -38,7 +38,7 @@ import torch
 
 from kbmod_tpu_torch.ops import _build
 from kbmod_tpu_torch.ops.psi_phi import _codes_as_int, _f32, interleave_code_pairs
-from kbmod_tpu_torch.ops.search_kernel import FLT_MAX, MAX_K
+from kbmod_tpu_torch.ops.search_kernel import FLT_MAX, allocate_maps
 from kbmod_tpu_torch.ops.search_plan import GROUP_G, grouped_plan, staging_header_bytes, window_layout_cached
 
 # uint8 code sums fit a 16-bit field while T * 255 <= 65535.
@@ -257,8 +257,8 @@ def _prepare(planes, dxs, dys, kw, name):
     T, H, W = planes.shape
     C = int(dxs.shape[0])
     SH, SW, K = int(kw["y_max"] - kw["y_min"]), int(kw["x_max"] - kw["x_min"]), int(kw["k_results"])
-    if not 1 <= K <= MAX_K:
-        raise ValueError(f"{name}: k_results={K} outside the kernel's 1..{MAX_K}")
+    if K < 1:
+        raise ValueError(f"{name}: k_results={K} must be at least 1")
     if SH <= 0 or SW <= 0:
         raise ValueError(f"{name}: empty search window {SH}x{SW}")
     if tuple(dxs.shape) != (C, T) or tuple(dys.shape) != (C, T):
@@ -312,8 +312,7 @@ def _launch_grouped(lib, entry, lead, prepared, min_obs, min_lh, kw, st, order, 
     tables = torch.as_tensor(
         np.concatenate([np.append(starts, C), st["lay"].ravel(), st["off"].ravel()]).astype(np.int32), device=dev)
     gstart, lay, off = tables[: NG + 1], tables[NG + 1 : NG + 1 + n_lay], tables[NG + 1 + n_lay :]
-    top_lh = torch.empty((K, SH, SW), dtype=torch.float32, device=dev)
-    top_idx = torch.empty((K, SH, SW), dtype=torch.int32, device=dev)
+    top_lh, top_idx = allocate_maps(K, SH, SW, dev, name)
     err = getattr(lib, entry)(
         *lead, pairs.data_ptr(), ox.data_ptr(), oy.data_ptr(), gidx.data_ptr(), cand_ok.data_ptr(),
         gstart.data_ptr(), lay.data_ptr(), off.data_ptr(), NG, T, H, Wp, SH, SW, K,

@@ -24,9 +24,6 @@ from kbmod_tpu_torch.ops import _build
 from kbmod_tpu_torch.ops.search_plan import GROUP_G, grouped_plan, staging_header_bytes, window_layout_cached
 
 FLT_MAX = float(np.finfo(np.float32).max)
-# The kernel keeps each pixel's top-K in registers while it inserts a
-# group, with K templated up to this.
-MAX_K = 64
 # The kernel's block tile (rows, columns) and staging chunk in pixels
 # (kb_search_topk_tile in csrc/search_topk.cu).
 K2_TILE_ROWS, K2_TILE_COLS, K2_CHUNK = 4, 256, 16
@@ -128,6 +125,23 @@ def search_topk_shift(
 search_topk_shift.calls = 0
 
 
+def allocate_maps(K, SH, SW, device, name):
+    """The (K, SH, SW) float32 lh and int32 index maps of a search on
+    ``device``, or a ValueError that names their size when the card cannot
+    hold them. The search kernels keep a list of up to 64 in registers and a
+    longer one in the maps themselves, so the maps' memory is their only
+    limit on K."""
+    try:
+        return (torch.empty((K, SH, SW), dtype=torch.float32, device=device),
+                torch.empty((K, SH, SW), dtype=torch.int32, device=device))
+    except torch.cuda.OutOfMemoryError as err:
+        need = 8 * int(K) * int(SH) * int(SW)
+        raise ValueError(
+            f"{name}: the (K={K}, {SH}, {SW}) top-K maps need {need} bytes ({need / 2**30:.2f} GiB), "
+            f"more than {device} can hold"
+        ) from err
+
+
 def k2_staging(dxs, dys, x_min, y_min):
     """The K2 kernel's host plan for (C, T) offsets: the grouping plan, the
     window layout of its staged windows and the shared memory it needs.
@@ -186,8 +200,9 @@ def search_topk(
     """Per-pixel top-K shift-and-stack search (see search_topk_shift for the
     function and the arguments).
 
-    CUDA tensors launch the kernel and raise if it cannot (for example
-    ``k_results > 64``); CPU tensors take the plain twin.
+    CUDA tensors launch the kernel and raise if it cannot (for example when
+    the (K, SH, SW) maps do not fit the card's memory); CPU tensors take the
+    plain twin.
     """
     if psi.device.type == "cpu":
         return search_topk_shift(
@@ -202,8 +217,8 @@ def search_topk(
     T, H, W = psi.shape
     C = dxs.shape[0]
     SH, SW, K = int(y_max - y_min), int(x_max - x_min), int(k_results)
-    if not 1 <= K <= MAX_K:
-        raise ValueError(f"search_topk: k_results={K} outside the kernel's 1..{MAX_K}")
+    if K < 1:
+        raise ValueError(f"search_topk: k_results={K} must be at least 1")
     if SH <= 0 or SW <= 0:
         raise ValueError(f"search_topk: empty search window {SH}x{SW}")
     if phi.shape != psi.shape or (has_masked and valid.shape != psi.shape):
@@ -212,8 +227,7 @@ def search_topk(
         raise ValueError(f"search_topk: offsets must be (C, T) = ({C}, {T})")
     if psi.dtype != torch.float32 or phi.dtype != torch.float32:
         raise ValueError("search_topk: psi and phi must be float32")
-    top_lh = torch.empty((K, SH, SW), dtype=torch.float32, device=dev)
-    top_idx = torch.empty((K, SH, SW), dtype=torch.int32, device=dev)
+    top_lh, top_idx = allocate_maps(K, SH, SW, dev, "search_topk")
     if C == 0:
         top_lh.fill_(-FLT_MAX)
         top_idx.fill_(-1)

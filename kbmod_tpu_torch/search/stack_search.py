@@ -16,6 +16,7 @@ ported yet.
 """
 
 import logging
+import os
 import time
 
 import numpy as np
@@ -28,6 +29,39 @@ from kbmod_tpu_torch.search.trajectory import Trajectory
 from kbmod_tpu_torch.search.trajectory_list import TrajectoryList
 
 logger = logging.getLogger("kbmod.search.run_search")
+
+# The JAX package's environment switches that change a search's results
+# (docs/env_vars.md), which the port does not honour yet: each name maps to
+# a test that its value keeps the default behaviour. Switches that only pick
+# a TPU route (KB_SEARCH_KERNEL, KB_SHARDED, KB_SHARD_MODE, KB_TIMING) are
+# ignored.
+SEARCH_SWITCHES = {
+    "KB_SNAP_ROW_ERROR": lambda v: float(v or 0.0) <= 0.0,
+    "KB_COMPACT_RESULTS": lambda v: v != "0",
+    "KB_SIGMAG_MODE": lambda v: v in ("", "overprovision"),
+    "KB_SIGMAG_TOPK_FACTOR": lambda v: int(v) == 4,
+    "KB_SIGMAG_AUTO": lambda v: v != "0",
+}
+
+
+def refuse_switches(switches, where):
+    """Raise NotImplementedError naming the first switch of ``switches``
+    (name -> test of a default value) that the environment sets to a value
+    other than its default: the port would otherwise ignore it and return
+    other results than the JAX package without a word."""
+    for name, is_default in switches.items():
+        value = os.environ.get(name)
+        if value is None:
+            continue
+        try:
+            default = is_default(value)
+        except ValueError:
+            default = False
+        if not default:
+            raise NotImplementedError(
+                f"{where}: the environment switch {name}={value!r} is not ported to kbmod_tpu_torch yet; "
+                f"unset it or give it its default value"
+            )
 
 
 class _SearchParams:
@@ -261,8 +295,10 @@ class StackSearch:
         and the in-kernel sigma-G filter when enabled); ``False`` uses
         CPU-path semantics (no gating, no sigma-G, keeps
         min(results_per_pixel, num_candidates) per pixel). Both run on the
-        search's device.
+        search's device. Raises NotImplementedError when one of
+        ``SEARCH_SWITCHES`` is set to another value than its default.
         """
+        refuse_switches(SEARCH_SWITCHES, "StackSearch.search_all")
         p = self.params
         max_results = self.compute_max_results()
         p.total_results = max_results

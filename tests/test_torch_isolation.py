@@ -1,8 +1,10 @@
 """kbmod_tpu_torch stands alone: it imports and runs a CPU search (float
-and uint8) with ``jax`` and ``kbmod_tpu`` blocked, no module of the port
-(``scripts/`` included) nor ``chip_smoke.py`` imports either at any depth
-of its code, and an entry point left to its default device (CUDA) raises
-on a host without a card."""
+and uint8) with ``jax`` and ``kbmod_tpu`` blocked, and the whole
+``SearchRunner`` pipeline (ECSV output, the default clustering) with
+scikit-learn, PyYAML, pandas, pyarrow, psutil and h5py blocked too; no
+module of the port (``scripts/`` included) nor ``chip_smoke.py`` imports
+JAX or the JAX package at any depth of its code, and an entry point left to
+its default device (CUDA) raises on a host without a card."""
 
 import ast
 import os
@@ -45,6 +47,55 @@ _SCRIPT = textwrap.dedent(
     print("OK", best, best_q)
     """
 )
+
+
+# The pipeline as the card's machine has it: no JAX, no JAX package, and
+# none of the host libraries the JAX package's pipeline imports that are
+# missing there.
+_PIPELINE_SCRIPT = textwrap.dedent(
+    """
+    import sys
+    for name in ("jax", "kbmod_tpu", "sklearn", "yaml", "pandas", "pyarrow", "psutil", "h5py"):
+        sys.modules[name] = None
+    import os, tempfile
+    import numpy as np
+    from kbmod_tpu_torch.configuration import SearchConfiguration
+    from kbmod_tpu_torch.fake_data.fake_data_creator import FakeDataSet, create_fake_times
+    from kbmod_tpu_torch.results import Results
+    from kbmod_tpu_torch.run_search import SearchRunner
+    from kbmod_tpu_torch.search import Trajectory
+
+    times = create_fake_times(8, t0=57130.2, obs_per_day=2, intra_night_gap=0.05)
+    ds = FakeDataSet(40, 36, times, use_seed=11, mask_fraction=0.02)
+    ds.insert_object(Trajectory(x=12, y=20, vx=3.0, vy=1.0, flux=300.0))
+    out = os.path.join(tempfile.mkdtemp(), "results.ecsv")
+    config = SearchConfiguration(dict(
+        generator_config={"name": "KBMODV1SearchConfig", "v_arr": [2.0, 4.0, 5], "ang_arr": [0.5, 0.5, 5],
+                          "average_angle": 0.3217505543966422},
+        num_obs=4, lh_level=5.0, result_filename=out, save_config=False, coadds=["mean", "median"],
+    ))
+    assert config["cluster_type"] == "all" and config["do_clustering"]
+    keep = SearchRunner().run_search(config, ds.stack_py, device="cpu")
+    back = Results.read_table(out)
+    assert len(back) == len(keep) > 0
+    assert (back["x"] == keep["x"]).all() and (back["coadd_sum"] == keep["coadd_sum"]).all()
+    best = int(np.argmax(keep["likelihood"]))
+    assert abs(keep["x"][best] - 12) <= 1 and abs(keep["y"][best] - 20) <= 1, (keep["x"][best], keep["y"][best])
+    bad = [m for m in ("jax", "kbmod_tpu", "sklearn", "yaml", "pandas", "pyarrow", "psutil", "h5py")
+           if sys.modules.get(m) is not None]
+    assert not bad, bad
+    print("OK", len(keep))
+    """
+)
+
+
+def test_pipeline_runs_without_jax_or_missing_host_libraries():
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [REPO_ROOT, os.environ.get("PYTHONPATH")])))
+    out = subprocess.run(
+        [sys.executable, "-c", _PIPELINE_SCRIPT], capture_output=True, text=True, env=env, cwd=REPO_ROOT, timeout=300
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("OK")
 
 
 def test_imports_and_searches_without_jax():

@@ -205,9 +205,9 @@ def test_k2_padding_and_ties(dev):
 def test_k2_rejects_what_it_cannot_run(dev):
     psi, phi, valid, dxs, dys = _search_inputs(dev)
     T, H, W = psi.shape
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="bytes"):  # maps larger than the card
         search_kernel.search_topk(psi, phi, valid, dxs, dys, 0.0, 0.0,
-                                  x_min=0, x_max=W, y_min=0, y_max=H, k_results=65)
+                                  x_min=0, x_max=W, y_min=0, y_max=H, k_results=10**9)
     with pytest.raises(ValueError):
         search_kernel.search_topk(psi, phi, valid, dxs[:, :3], dys, 0.0, 0.0,
                                   x_min=0, x_max=W, y_min=0, y_max=H, k_results=2)
@@ -473,10 +473,143 @@ def test_encoded_kernels_reject_what_they_cannot_run(dev):
     _, H, W = planes.shape
     dx, dy = torch.as_tensor(dxs, device=dev), torch.as_tensor(dys, device=dev)
     kw = dict(x_min=0, x_max=W, y_min=0, y_max=H)
-    with pytest.raises(ValueError):
-        search_encoded_kernel.search_encoded(planes, dx, dy, 0.0, 0.0, k_results=65, **kw)
+    with pytest.raises(ValueError, match="bytes"):  # maps larger than the card
+        search_encoded_kernel.search_encoded(planes, dx, dy, 0.0, 0.0, k_results=10**9, **kw)
     with pytest.raises(ValueError):
         search_encoded_kernel.search_grouped(planes, dx, dy, 0.0, 0.0, k_results=2, plan=(np.arange(3), [0]), **kw)
     planes16, _, _ = _encoded_inputs(dev, 7, 16)
     with pytest.raises(ValueError):
         search_encoded_kernel.search_paired(planes16, dx, dy, 0.0, 0.0, k_results=2, **kw)
+
+
+# Lists longer than 64 stay in the maps (kMapList): K2-K5 at K = 65, 100
+# and 128 over 150-200 candidates, so lists fill and entries leave them.
+K_MAP_CASES = {
+    "k65": dict(k_results=65),
+    "k100_min_lh": dict(k_results=100, gate_min_lh=True, min_lh=-2.0),
+    "k128": dict(k_results=128),
+    "k128_no_obs_gate_extended": dict(k_results=128, gate_min_obs=False, x_min=-5, x_max=40, y_min=-3, y_max=30),
+}
+
+
+@pytest.mark.parametrize("name", sorted(K_MAP_CASES))
+@pytest.mark.parametrize("kernel,bits", [("K2", 32), ("K3", 16), ("K3", 8), ("K4", 8), ("K5", 8)])
+def test_long_lists_match_twin(dev, kernel, bits, name):
+    kw = dict(K_MAP_CASES[name])
+    min_lh = kw.pop("min_lh", 0.0)
+    if kernel == "K2":
+        psi, phi, valid, dxs, dys = _grouped_inputs(dev, H=33, W=41, C=200, dup=5)
+        T, H, W = psi.shape
+        kw = dict(dict(x_min=0, x_max=W, y_min=0, y_max=H), **kw)
+        args = (psi, phi, valid, dxs, dys, 2.0, min_lh)
+        wrapper, twin = search_kernel.search_topk, search_kernel.search_topk_shift
+        twin_args = args
+    else:
+        planes, dxs, dys = _encoded_inputs(dev, 9, bits, H=33, W=41, C=150)
+        _, H, W = planes.shape
+        kw = dict(dict(x_min=0, x_max=W, y_min=0, y_max=H), **kw)
+        dx, dy = torch.as_tensor(dxs, device=dev), torch.as_tensor(dys, device=dev)
+        args = (planes, dx, dy, 2.0, min_lh)
+        twin_args = (planes.psi_codes, planes.phi_codes, dx, dy, 2.0, min_lh, planes.em)
+        twin = search_encoded_kernel.search_topk_encoded_shift
+        wrapper = {"K3": search_encoded_kernel.search_encoded, "K4": search_encoded_kernel.search_paired,
+                   "K5": search_encoded_kernel.search_grouped}[kernel]
+    extra = dict(plan=_plan_groups(dys, 8, 8)) if kernel == "K5" else {}
+    launches = wrapper.launches
+    got = wrapper(*args, **kw, **extra)
+    assert wrapper.launches == launches + 1
+    ref = twin(*twin_args, **kw)
+    assert torch.equal(got[1], ref[1])
+    assert torch.equal(got[0], ref[0])
+    assert int((ref[1][-1] >= 0).sum()) > 0, "no list filled to its last slot"
+
+
+def test_batched_coadds_on_card_equal_cpu(dev):
+    """The coadds reduced on the card equal the CPU run: sum, median and the
+    stamp cube exact, mean and weighted within 1e-6 relative."""
+    from kbmod_tpu_torch.ops.stamps import batched_coadds
+
+    rng = np.random.default_rng(21)
+    T, H, W, R = 9, 60, 70, 300
+    sci = rng.normal(0, 3, (T, H, W)).astype(np.float32)
+    var = rng.uniform(0.5, 2, (T, H, W)).astype(np.float32)
+    sci[rng.uniform(size=sci.shape) < 0.05] = np.nan
+    var[rng.uniform(size=sci.shape) < 0.02] = 0.0
+    times = np.linspace(0.0, 2.0, T)
+    xs, ys = rng.integers(-6, W + 6, R), rng.integers(-6, H + 6, R)
+    vx, vy = rng.normal(0, 4, R), rng.normal(0, 4, R)
+    valid = rng.uniform(size=(R, T)) < 0.75
+    kinds = ["sum", "mean", "median", "weighted", "all_stamps"]
+    args = (list(sci), list(var), times, xs, ys, vx, vy, 6, kinds)
+    got = batched_coadds(*args, obs_valid=valid, device=dev)
+    ref = batched_coadds(*args, obs_valid=valid, device="cpu")
+    for kind in kinds:
+        if kind in ("mean", "weighted"):
+            np.testing.assert_allclose(got[kind], ref[kind], rtol=1e-6, atol=0, err_msg=kind)
+        else:
+            np.testing.assert_array_equal(got[kind], ref[kind], err_msg=kind)
+
+
+@pytest.mark.parametrize("num_bytes,gpu_filter", [(-1, False), (1, True)], ids=["float-host-sigmag", "u8-gpu-filter"])
+def test_search_runner_on_card_equals_cpu(dev, tmp_path, monkeypatch, num_bytes, gpu_filter):
+    """A small SearchRunner run on the card equals the CPU run: rows exact,
+    lh bit-equal (every kernel equals its twin, the gathers and the host
+    stages are the same arithmetic). K1's plain twin on the CPU may round a
+    psi/phi value an ulp or two away from K1 (and itself) on the card, which
+    moves a uint8 code by at most one: that is checked (and counted) first,
+    and then both runs search the CPU build's planes, handed over where the
+    runner builds its StackSearch."""
+    import kbmod_tpu_torch.run_search as run_search
+    from kbmod_tpu_torch.configuration import SearchConfiguration
+    from kbmod_tpu_torch.fake_data.fake_data_creator import FakeDataSet, create_fake_times
+    from kbmod_tpu_torch.ops.psi_phi import psi_phi_array_from_numpy
+    from kbmod_tpu_torch.search import StackSearch, Trajectory
+
+    times = create_fake_times(10, t0=57130.2, obs_per_day=2, intra_night_gap=0.05)
+
+    def stack():
+        ds = FakeDataSet(96, 80, times, psf_val=1.2, mask_fraction=0.03, use_seed=17)
+        ds.insert_object(Trajectory(x=40, y=33, vx=4.0, vy=-1.5, flux=250.0))
+        return ds.stack_py
+
+    st = stack()
+    cpu = StackSearch(st.sci, st.var, st.psfs, st.zeroed_times, num_bytes, device="cpu").psi_phi_array
+    card = StackSearch(st.sci, st.var, st.psfs, st.zeroed_times, num_bytes, device=dev).psi_phi_array
+    if num_bytes == -1:
+        for a, b in zip(card.decoded_psi_phi()[:2], cpu.decoded_psi_phi()[:2]):
+            a, b = a.cpu().numpy(), b.numpy()
+            ulps = np.abs(a.view(np.int32).astype(np.int64) - b.view(np.int32).astype(np.int64))
+            print(f"float build, card against CPU: {int((ulps > 0).sum())} of {a.size} values differ, "
+                  f"at most {int(ulps.max())} ulp")
+            assert np.all(np.sign(a) == np.sign(b)) and ulps.max() <= 2
+        assert torch.equal(card.valid.cpu(), cpu.valid)
+    else:
+        for a, b in ((card.psi, cpu.psi), (card.phi, cpu.phi)):
+            d = (a.cpu().to(torch.int32) - b.to(torch.int32)).abs()
+            print(f"uint8 build, card against CPU: {int((d > 0).sum())} of {d.numel()} codes differ")
+            assert int(d.max()) <= 1
+    valid = None if num_bytes in (1, 2) else cpu.valid.numpy()
+    planes = (cpu.psi.numpy(), cpu.phi.numpy(), valid, cpu.times, cpu.meta)
+
+    class HandedOver(StackSearch):
+        def __init__(self, *args, device=None):
+            super().__init__(*args, device=device)
+            self.psi_phi_array = psi_phi_array_from_numpy(*planes, device=self.device)
+
+    monkeypatch.setattr(run_search, "StackSearch", HandedOver)
+    tables = []
+    for where in (dev, "cpu"):
+        config = SearchConfiguration(dict(
+            generator_config={"name": "KBMODV1SearchConfig", "v_arr": [2.0, 6.0, 7], "ang_arr": [0.6, 0.2, 7],
+                              "average_angle": 0.0},
+            encode_num_bytes=num_bytes, gpu_filter=gpu_filter, num_obs=5, lh_level=3.0, near_dup_thresh=3,
+            cluster_eps=1.5, coadds=["mean", "median"], save_config=False,
+            result_filename=str(tmp_path / f"{'card' if where is dev else 'cpu'}.ecsv"),
+        ))
+        tables.append(run_search.SearchRunner(device=where).run_search(config, stack()))
+    got, ref = tables
+    assert len(got) == len(ref) > 0
+    for k in ("x", "y", "vx", "vy", "obs_count", "likelihood", "flux", "obs_valid", "psi_curve", "phi_curve",
+              "coadd_sum", "coadd_median"):
+        np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+    np.testing.assert_allclose(got["coadd_mean"], ref["coadd_mean"], rtol=1e-6)
