@@ -35,10 +35,29 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    that reads back with the same rows, and stay inside the port's memory
    budget (``run_search.search_memory_budget``) over ``do_core_search``;
    its phase walls and the budget against the measured peak are printed;
-7. K6's own path, the micro-benchmark script
+7. the search's switches on the same stack, each search driven with the
+   counts at 0 and read after, through its kernel with no twin: the uint8
+   full frame with ``KB_SNAP_ROW_ERROR=0.75`` (K5; the vy classes before
+   and after, the route, K5's time; the object best within a lattice step),
+   the float sigma-G band with ``KB_SIGMAG_TOPK_FACTOR=8`` and with
+   ``KB_SIGMAG_AUTO=0`` (K2), the float full frame with
+   ``KB_COMPACT_RESULTS=0`` (K2; the same rows as the compact layout);
+8. ``KB_SIGMAG_MODE=exact`` on a 64-row float band over every candidate
+   (plain PyTorch on the card, no kernel): its time and rows per second,
+   every kept slot's clipped lh against the host's re-score of the same
+   curves, the object best;
+9. stamp vetting: P3, the float pipeline with ``cnn_filter`` on a resnet18
+   state_dict drawn from ``torch.Generator(0)`` into a temporary directory
+   (K1, K2, no twin; the ``cnn filtering`` phase's time); the brightness
+   filter and the known-object matcher (a fake WCS, a catalog made from the
+   object's path: its row must match) on P3's rows before clustering;
+   ``filter_stamps_by_cnn`` alone on 4,096 random 21 x 21 stamps (resnet18)
+   and 1,024 of 99 x 99 (resnet50), stamps per second, logits against the
+   CPU's;
+10. K6's own path, the micro-benchmark script
    (``kbmod_tpu_torch.scripts.exactrow_microbench``), driven with the
    counts at 0 and read after;
-8. each kernel's time at the main path's shapes beside its twin's, its
+11. each kernel's time at the main path's shapes beside its twin's, its
    bound and (K1) cuDNN's grouped convolution, as one JSON line (K2 and K5
    at both of their main-path shapes: the full frame at K = 8 and the
    sigma-G band at K = 32, each held against the twin); K2 and K3 with
@@ -46,17 +65,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    dispatcher (dedup + K5 + expansion) at the JAX package's
    ``midscale_kernel`` shapes (T = 64, 2048 x 2048, C = 33,153, K = 8);
    and K6's three modes at the script's defaults and at NG = 3,015;
-9. as the last line, {"ok": true, "device": {...}}.
+   launches summed over every path above;
+12. as the last line, {"ok": true, "device": {...}}.
 
 Imports nothing of the JAX package.
 """
 
 import argparse
 import json
+import os
 import re
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 
 import numpy as np
 import torch
@@ -78,6 +100,13 @@ SOURCES = ["psi_phi_conv", "search_topk", "search_topk_encoded", "search_topk_gr
 # and spill lines are printed on their own.
 REPORTED = ("psi_phi_conv", "search_topk", "search_topk_encoded", "search_topk_grouped", "search_topk_encoded_grouped",
             "exactrow_microbench")
+# The pipelines' generator: the main path's 41 x 41 grid as a configuration
+# gives it.
+PIPELINE_GENERATOR = {"name": "KBMODV1SearchConfig", "v_arr": [5.0, 45.0, 41], "ang_arr": [0.5, 0.5, 41],
+                      "average_angle": 0.0}
+# filter_stamps_by_cnn timed alone: (model, stamps, stamp radius): the
+# pipeline's radius 10, and the configuration's default cnn_stamp_radius 49.
+VETTING_STAMPS = (("resnet18", 4096, 10), ("resnet50", 1024, 49))
 # The group count of the midscale search's uniform plan: K6 is timed there too.
 K6_MIDSCALE_NG = 3015
 # em of the JAX package's midscale_kernel benchmark (bench.py:176-178).
@@ -637,6 +666,7 @@ def main_path(stack, obj, cands, band=256):
     search.set_min_lh(10.0)
     search.search_all(cands, True)
     full_t = dict(search.timings)
+    full_rows = {k: np.array(v) for k, v in search.results.get_arrays().items()}
     best = search.get_results(0, 1)[0]
     n_full = search.get_number_total_results()
 
@@ -666,7 +696,7 @@ def main_path(stack, obj, cands, band=256):
         raise AssertionError(f"a kernel of the float path never launched: {launches}")
     if max(twin_calls.values()) != 0:
         raise AssertionError(f"a plain twin ran on the float path: {twin_calls}")
-    return search, launches
+    return search, launches, full_rows, full_t
 
 
 def quantized_path(stack, obj, cands, obj_c, band=256):
@@ -759,8 +789,7 @@ def pipeline_path(stack, obj, card, dev):
     from kbmod_tpu_torch.results import Results
     from kbmod_tpu_torch.run_search import SearchRunner, search_memory_budget
 
-    generator = {"name": "KBMODV1SearchConfig", "v_arr": [5.0, 45.0, 41], "ang_arr": [0.5, 0.5, 41],
-                 "average_angle": 0.0}
+    generator = PIPELINE_GENERATOR
     runs = {
         "P1 float": (dict(), ("psi_phi_conv", "search_topk")),
         "P2 uint8": (dict(encode_num_bytes=1, gpu_filter=True, coadds=["mean", "median", "weighted"]),
@@ -818,6 +847,305 @@ def pipeline_path(stack, obj, card, dev):
             for k, v in launches.items():
                 total[k] = total.get(k, 0) + v
     return total, walls, memory
+
+
+# ----------------------------------------------------------------------
+# The search's switches, the exact sigma-G mode and stamp vetting
+# ----------------------------------------------------------------------
+
+@contextmanager
+def switched(**env):
+    """The environment switches set for the block and restored after it,
+    whether or not it raises."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def drive(tag, kernels, fn):
+    """Run ``fn`` with the counts at 0 just before and read just after; it
+    must launch every kernel of ``kernels`` and no plain twin. Returns
+    (fn's value, launches, wall ms)."""
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    launches, twin_calls = read_counts()
+    log(f"{tag}: launches {launches}, twin calls {twin_calls}, wall {wall:.1f} ms")
+    if min((launches[k] for k in kernels), default=1) <= 0 or max(twin_calls.values()) != 0:
+        raise AssertionError(f"{tag}: not through {kernels} alone: {launches}, {twin_calls}")
+    return out, launches, wall
+
+
+def _add(total, launches):
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def switch_path(search, searches, obj, cands, full_rows, full_t, band=256):
+    """The five result-changing switches on the main stack, each search
+    driven with the counts at 0 and read after: the uint8 full frame with
+    KB_SNAP_ROW_ERROR=0.75 (K5), the float sigma-G band with
+    KB_SIGMAG_TOPK_FACTOR=8 and with KB_SIGMAG_AUTO=0 (K2), the float full
+    frame with KB_COMPACT_RESULTS=0 (K2; the same rows as the compact
+    layout). Returns the launches summed over the four."""
+    from kbmod_tpu_torch.ops import search_encoded_kernel as ek
+    from kbmod_tpu_torch.ops.search import snap_vy_rows, trajectory_offsets
+    from kbmod_tpu_torch.ops.search_encoded import encoded_route, search_topk_encoded
+    from kbmod_tpu_torch.ops.search_plan import _dedup_plan_cached
+
+    T, H, W = search.num_images, search.height, search.width
+    times = np.asarray(search.zeroed_times)
+    vxs = np.array([c.vx for c in cands], np.float32)
+    vys = np.array([c.vy for c in cands], np.float32)
+    total = {}
+
+    # uint8 full frame, vy snapped to the row lattice.
+    u8 = searches["u8"]
+    u8.set_start_bounds_y(0, H)
+    u8.disable_gpu_sigmag_filter()
+    u8.set_min_lh(10.0)
+    snapped, n_vy = snap_vy_rows(vys, times, 0.75)
+    rows_before = len(np.unique(trajectory_offsets(vxs, vys, times)[1], axis=0))
+    dxs, dys = trajectory_offsets(vxs, snapped, times)
+    rows_after = len(np.unique(dys, axis=0))
+    with switched(KB_SNAP_ROW_ERROR="0.75"):
+        _, launches, wall = drive("switch KB_SNAP_ROW_ERROR=0.75, u8 full frame (K5)", ("search_grouped",),
+                                  lambda: u8.search_all(cands, True))
+    _add(total, launches)
+    route = search_topk_encoded.last_route
+    best = u8.get_results(0, 1)[0]
+    q = 2 * 0.75 / float(times.max())
+    if (best.x, best.y) != (obj.x, obj.y) or abs(best.vx - obj.vx) > 1e-4 or abs(best.vy - obj.vy) > q + 1e-5:
+        raise AssertionError(f"snapped u8 search: best {best} is not the object {obj} (lattice {q})")
+    dedup = _dedup_plan_cached(dxs, dys, 1.1)
+    u_dxs, u_dys = (dedup[0], dedup[1]) if dedup is not None else (dxs, dys)
+    planes = u8._eval_planes()[0]
+    _, plan = encoded_route(planes.psi_codes.dtype, T, u_dys)
+    dx_t, dy_t = torch.as_tensor(u_dxs, device=planes.device), torch.as_tensor(u_dys, device=planes.device)
+    k5_ms = event_ms(lambda: ek.search_grouped(planes, dx_t, dy_t, float(T // 2), 10.0, x_min=0, x_max=W, y_min=0,
+                                               y_max=H, k_results=8, gate_min_lh=True, plan=plan), 3)
+    log(f"switch KB_SNAP_ROW_ERROR=0.75: {len(np.unique(vys))} vy values -> {n_vy} after snapping "
+        f"({rows_before} -> {rows_after} row-offset classes of {len(cands)} candidates; {len(u_dxs)} offset "
+        f"classes searched), route {route}, K5 {k5_ms:.3f} ms ({len(plan[1])} groups), search stage "
+        f"{u8.timings['search_ms']:.1f} ms, assembly {u8.timings['assemble_ms']:.1f} ms; best {best}")
+
+    # The float sigma-G band with a deeper pool, and with the refinement off.
+    y0 = obj.y - band // 2
+    search.set_start_bounds_y(y0, y0 + band)
+    search.enable_gpu_sigmag_filter([0.25, 0.75], 0.7413, 10.0)
+    for name, value in (("KB_SIGMAG_TOPK_FACTOR", "8"), ("KB_SIGMAG_AUTO", "0")):
+        with switched(**{name: value}):
+            _, launches, wall = drive(f"switch {name}={value}, float sigma-G band y=[{y0}, {y0 + band}) (K2)",
+                                      ("search_topk",), lambda: search.search_all(cands, True))
+        _add(total, launches)
+        _check_best(f"switch {name}={value}", search.get_results(0, 1)[0], obj, T // 2)
+        log(f"switch {name}={value}: {search.get_number_total_results()} results, search stage "
+            f"{search.timings['search_ms']:.1f} ms, assembly {search.timings['assemble_ms']:.1f} ms")
+
+    # The float full frame in the dense layout: the same rows.
+    search.set_start_bounds_y(0, H)
+    search.disable_gpu_sigmag_filter()
+    search.set_min_lh(10.0)
+    with switched(KB_COMPACT_RESULTS="0"):
+        _, launches, wall = drive("switch KB_COMPACT_RESULTS=0, float full frame (K2)", ("search_topk",),
+                                  lambda: search.search_all(cands, True))
+    _add(total, launches)
+    rows = search.results.get_arrays()
+    for k, v in full_rows.items():
+        if not np.array_equal(rows[k], v):
+            raise AssertionError(f"KB_COMPACT_RESULTS=0: column {k} differs from the compact layout's rows")
+    log(f"switch KB_COMPACT_RESULTS=0: {len(rows['x'])} rows, equal to the compact layout's; search stage "
+        f"{search.timings['search_ms']:.1f} ms, assembly {search.timings['assemble_ms']:.1f} ms "
+        f"(compact: {full_t['assemble_ms']:.1f} ms)")
+    return total
+
+
+def exact_path(search, obj, cands, card, rows=64):
+    """KB_SIGMAG_MODE=exact on a ``rows``-row float band holding the object,
+    over every candidate: plain PyTorch on the card (the reference runs it
+    in XLA), no kernel and no twin. The object must be the best result;
+    every kept slot's clipped lh must equal the host ``clipped_sigmag_scores``
+    of the same curves within twice the Queue 3 float64 bound. Returns its
+    ms, the rows per second and the kept slots checked."""
+    from kbmod_tpu_torch.ops import search as ops
+
+    T, H, W = search.num_images, search.height, search.width
+    y0 = obj.y - rows // 2
+    search.set_start_bounds_y(y0, y0 + rows)
+    search.enable_gpu_sigmag_filter([0.25, 0.75], 0.7413, 10.0)
+    seen = {}
+    exact = ops.search_topk_sigmag_exact
+
+    def timed(*args, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = exact(*args, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        seen["ms"] = start.elapsed_time(end)
+        seen["maps"] = out
+        seen["args"] = (args, kw)
+        return out
+
+    ops.search_topk_sigmag_exact = timed
+    try:
+        with switched(KB_SIGMAG_MODE="exact"):
+            _, launches, wall = drive(f"exact sigma-G, float band y=[{y0}, {y0 + rows}), {len(cands)} candidates",
+                                      (), lambda: search.search_all(cands, True))
+    finally:
+        ops.search_topk_sigmag_exact = exact
+    if max(launches.values()) != 0:
+        raise AssertionError(f"exact sigma-G ran a search kernel: {launches}")
+    best = search.get_results(0, 1)[0]
+    _check_best("exact sigma-G band", best, obj, T // 2)
+
+    # Every kept slot against the host function on its curves.
+    top_lh, top_idx = (a.cpu().numpy() for a in seen["maps"])
+    (psi, phi, valid, dxs, dys, *_), kw = seen["args"]
+    k, i, j = np.nonzero(top_idx >= 0)
+    cidx = top_idx[k, i, j]
+    psi_v, phi_v, ok, _ = ops._eval_by_index_chunked(
+        psi, phi, valid, (j + kw["x_min"]).astype(np.int32), (i + kw["y_min"]).astype(np.int32), cidx,
+        dxs, dys, ops.EVAL_CHUNK, True, T)
+    host_lh, _, _, host_phi = ops.clipped_sigmag_scores(psi_v, phi_v, ok, 0.25, 0.75, 0.7413)
+    u = 2.0 ** -24
+    root = np.sqrt(np.maximum(host_phi.astype(np.float64), 1e-300))
+    tol = 2 * ((T + 1) * u * np.abs(np.where(ok, psi_v, 0)).astype(np.float64).sum(axis=1) / root
+               + 2 * u * np.abs(host_lh))
+    gap = np.abs(top_lh[k, i, j].astype(np.float64) - host_lh)
+    if not np.all(gap <= tol):
+        bad = int(np.argmax(gap - tol))
+        raise AssertionError(f"exact sigma-G: slot {(k[bad], i[bad], j[bad])} lh {top_lh[k[bad], i[bad], j[bad]]} "
+                             f"against the host's {host_lh[bad]} (bound {tol[bad]})")
+    ms = seen["ms"]
+    log(f"exact sigma-G band ({rows} x {W}, C={len(cands)}, K={top_lh.shape[0]}): {ms:.1f} ms, "
+        f"{rows / (ms / 1e3):.4g} rows/s, {rows * W * len(cands) / (ms / 1e3):.4g} evals/s; {len(k)} kept slots "
+        f"within the bound of the host re-score (largest gap {gap.max():.3g}, {float((gap / tol).max()):.3f} "
+        f"of its bound); search stage {search.timings['search_ms']:.1f} ms, assembly "
+        f"{search.timings['assemble_ms']:.1f} ms; best {best}; {card}")
+    return ms, rows / (ms / 1e3), len(k)
+
+
+def vetting_path(stack, obj, card, dev, generator=None, timed=VETTING_STAMPS):
+    """Stamp vetting on the main stack. P3: the float pipeline with
+    ``cnn_filter`` on a resnet18 state_dict drawn from torch.Generator(0)
+    (written to a temporary directory), cnn_stamp_radius 10 and mean
+    coadds, driven with the counts at 0 (K1, K2, no twin); the brightness
+    filter and the known-object matcher (a fake WCS, a catalog made from
+    the object's path) on its rows before clustering, where the object's
+    row must match; then ``filter_stamps_by_cnn`` alone on 4,096 random
+    21 x 21 stamps (resnet18) and 1,024 of 99 x 99 (resnet50, the
+    configuration's default cnn_stamp_radius of 49), with the card's logits
+    held to the CPU's. Returns the launches of P3 and the times."""
+    import copy
+    import tempfile
+
+    from kbmod_tpu_torch.configuration import SearchConfiguration
+    from kbmod_tpu_torch.filters.brightness_filters import apply_brightness_search_filter
+    from kbmod_tpu_torch.filters.known_object_filters import KnownObjsMatcher
+    from kbmod_tpu_torch.filters.stamp_filters import filter_stamps_by_cnn
+    from kbmod_tpu_torch.models.cnn import StampClassifier
+    from kbmod_tpu_torch.results import Results
+    from kbmod_tpu_torch.run_search import SearchRunner
+    from kbmod_tpu_torch.table import Table
+    from kbmod_tpu_torch.trajectory_utils import trajectory_predict_skypos
+    from kbmod_tpu_torch.wcs_utils import make_fake_wcs
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        weights = f"{tmp}/resnet18.pt"
+        torch.save(StampClassifier("resnet18", 21, seed=0, device="cpu").model.state_dict(), weights)
+        config = SearchConfiguration(dict(generator_config=generator or PIPELINE_GENERATOR,
+                                          result_filename=f"{tmp}/P3.ecsv",
+                                          save_config=False, coadds=["mean"], cnn_filter=True, cnn_model=weights,
+                                          cnn_stamp_radius=10, cnn_coadd_type="mean"))
+        runner = SearchRunner()
+        core = runner.do_core_search
+        pre = {}
+
+        def keep_rows(config, stack, trj_generator):
+            rows = core(config, stack, trj_generator)
+            pre["rows"] = copy.deepcopy(rows)
+            return rows
+
+        runner.do_core_search = keep_rows
+        keep, launches, wall = drive("pipeline P3 float with cnn_filter (K1, K2)", ("psi_phi_conv", "search_topk"),
+                                     lambda: runner.run_search(config, stack))
+        walls = {k: (v[1] - v[0]) * 1e3 for k, v in runner.phase_times.items()}
+        log(f"pipeline P3: {len(keep)} rows in {wall / 1e3:.2f} s, row 0 (x={keep['x'][0]}, y={keep['y'][0]}, "
+            f"prob_real={keep['prob_real'][0]:.4f}, prob_bogus={keep['prob_bogus'][0]:.4f}, "
+            f"cnn_class={keep['cnn_class'][0]}); phase walls (ms): "
+            + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()) + f"; {card}")
+        if (keep["x"][0], keep["y"][0]) != (obj.x, obj.y) or not np.all(np.isfinite(keep["prob_real"])):
+            raise AssertionError(f"pipeline P3: row 0 is not the object or the CNN columns are not finite")
+        out["cnn_phase_ms"] = walls["cnn filtering"]
+        out["launches"] = launches
+
+    # The brightness and known-object filters on the rows before clustering.
+    rows = pre["rows"]
+    n_rows = len(rows)
+    bright = copy.deepcopy(rows)
+    t0 = time.perf_counter()
+    apply_brightness_search_filter(bright, stack)
+    out["brightness_ms"] = (time.perf_counter() - t0) * 1e3
+    kept = set(zip(np.asarray(bright["x"]).tolist(), np.asarray(bright["y"]).tolist()))
+    wcs = make_fake_wcs(200.0, -7.0, stack.height, stack.width, 0.27 / 3600.0)
+    sky = trajectory_predict_skypos(obj, wcs, np.asarray(stack.times))
+    catalog = Table({"Name": np.array(["object"] * stack.num_times, dtype=object), "RA": sky.ra_deg,
+                     "DEC": sky.dec_deg, "mjd_mid": np.asarray(stack.times)})
+    t0 = time.perf_counter()
+    matcher = KnownObjsMatcher(catalog, np.asarray(stack.times), "known", sep_thresh=0.5)
+    matcher.match(rows, wcs)
+    out["known_ms"] = (time.perf_counter() - t0) * 1e3
+    at = [r for r in range(n_rows) if (rows["x"][r], rows["y"][r]) == (obj.x, obj.y)
+          and abs(rows["vx"][r] - obj.vx) < 1e-4 and abs(rows["vy"][r] - obj.vy) < 1e-4]
+    matched = [r for r in range(n_rows) if rows["known"][r]]
+    log(f"vetting before clustering: {n_rows} rows; brightness filter kept {len(bright)} in "
+        f"{out['brightness_ms']:.1f} ms (object kept: {(obj.x, obj.y) in kept}); known-object matcher "
+        f"{out['known_ms']:.1f} ms, {len(matched)} rows matched; object rows {at}")
+    for r in at:
+        valid = np.asarray(rows["obs_valid"][r], dtype=bool)
+        hits = np.asarray(rows["known"][r].get("object", [False] * len(valid)), dtype=bool)
+        if not np.array_equal(hits, valid):
+            raise AssertionError(f"known-object matcher: the object's row {r} matched at {hits}, valid at {valid}")
+    if not at:
+        raise AssertionError("known-object matcher: no row before clustering is the object")
+
+    # filter_stamps_by_cnn alone, and the card's logits against the CPU's.
+    rng = np.random.default_rng(7)
+    for model_type, n, radius in timed:
+        width = 2 * radius + 1
+        stamps = rng.normal(0.0, 1.0, (n, width, width)).astype(np.float32)
+        res = Results({"x": np.zeros(n, int), "y": np.zeros(n, int), "vx": np.zeros(n), "vy": np.zeros(n),
+                       "likelihood": np.zeros(n), "flux": np.zeros(n), "obs_count": np.zeros(n, int),
+                       "coadd_mean": stamps})
+        filter_stamps_by_cnn(res, None, model_type=model_type, stamp_radius=radius, coadd_radius=radius)
+        t0 = time.perf_counter()
+        filter_stamps_by_cnn(res, None, model_type=model_type, stamp_radius=radius, coadd_radius=radius)
+        call_ms = (time.perf_counter() - t0) * 1e3
+        clf = StampClassifier(model_type, width, seed=0)
+        net_ms = event_ms(lambda: clf.predict(stamps), 3)
+        got = clf.predict(stamps[:64])
+        want = StampClassifier(model_type, width, seed=0, device="cpu").predict(stamps[:64])
+        tol = 1e-4 * (1.0 + np.abs(want).max())
+        err = float(np.abs(got - want).max())
+        if not (np.all(np.isfinite(res["prob_real"])) and err <= tol):
+            raise AssertionError(f"{model_type}: card logits {err} from the CPU's (tolerance {tol})")
+        out[model_type] = (call_ms, net_ms, n)
+        log(f"filter_stamps_by_cnn {model_type}, {n} stamps of {width} x {width}: {call_ms:.1f} ms "
+            f"({n / (call_ms / 1e3):.4g} stamps/s, normalization and weights included); predict alone "
+            f"{net_ms:.1f} ms ({n / (net_ms / 1e3):.4g} stamps/s); logits within {err:.3g} of the CPU's "
+            f"(tolerance {tol:.3g}); {card}")
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -1129,9 +1457,12 @@ def main():
         return 0
 
     stack, obj, cands, obj_c = make_main_stack(args.seed)
-    search, launches_f = main_path(stack, obj, cands)
+    search, launches_f, full_rows, full_t = main_path(stack, obj, cands)
     searches, sparse, launches_q = quantized_path(stack, obj, cands, obj_c)
     launches_p, _, _ = pipeline_path(stack, obj, card, dev)
+    launches_s = switch_path(search, searches, obj, cands, full_rows, full_t)
+    exact_path(search, obj, cands, card)
+    vetting = vetting_path(stack, obj, card, dev)
     launches_k6 = k6_path()
     k1 = time_k1(stack, dev)
     T, H, W = len(stack.sci), *np.asarray(stack.sci[0]).shape
@@ -1173,7 +1504,8 @@ def main():
                     ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                     library_ms=r["library_ms"])
 
-    launches = {k: launches_f[k] + launches_q[k] + launches_p.get(k, 0) for k in launches_f}
+    launches = {k: launches_f[k] + launches_q[k] + launches_p.get(k, 0) + launches_s.get(k, 0)
+                + vetting["launches"].get(k, 0) for k in launches_f}
     entries = [
         entry("psi_phi_conv", "psi_phi_conv.cu", "conv_pallas.py:32", launches["psi_phi_conv"], err_k1, k1),
         entry("search_topk", "search_topk.cu", "search_pallas.py:182", launches["search_topk"],

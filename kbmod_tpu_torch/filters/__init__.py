@@ -1,3 +1,3 @@
 """Post-search filtering of the port: sigma-G clipping, clustering and
-deduplication, coadd stamps and the SNS stamp filters. CNN vetting,
-brightness and known-object filters are not ported yet."""
+deduplication, coadd stamps, the SNS stamp filters, CNN vetting, and the
+brightness and known-object filters."""

@@ -1,10 +1,11 @@
-"""Stamp-based result augmentation (and, later, CNN vetting).
+"""Stamp-based result augmentation and CNN vetting.
 
 Port of the JAX package's filters/stamp_filters.py (API-compatible with the
 reference's kbmod.filters.stamp_filters): ``append_coadds`` adds coadd_*
-stamp columns (optionally per calendar night) and ``append_all_stamps``
-adds the (R, T, S, S) stamp cube. ``filter_stamps_by_cnn`` waits for the
-port of the CNN (ROADMAP Queue 1 item 4) and raises NotImplementedError.
+stamp columns (optionally per calendar night), ``append_all_stamps`` adds
+the (R, T, S, S) stamp cube, and ``filter_stamps_by_cnn`` classifies each
+result's coadd with the ResNet of ``kbmod_tpu_torch.models.cnn`` (the
+stamps normalized on the host, the network on the device).
 
 The coadds are computed by ``kbmod_tpu_torch.ops.stamps.batched_coadds``:
 the stamp windows are gathered from the per-time images on the host and
@@ -106,6 +107,27 @@ def append_all_stamps(result_data, im_stack, stamp_radius, device=None):
     stamp_timer.stop()
 
 
+def _normalize_stamps(stamps, stamp_dimm):
+    """Normalize stamps for CNN input: clip the low tail at median -
+    2*sigma_G, subtract the min, normalize to unit sum (reference
+    stamp_filters.py:213-229)."""
+    normed = []
+    sigma_g_coeff = 0.7413
+    for stamp in stamps:
+        stamp = np.nan_to_num(np.copy(stamp), nan=0.0)
+        per25, per50, per75 = np.percentile(stamp, [25, 50, 75])
+        sigma_g = sigma_g_coeff * (per75 - per25)
+        low = per50 - 2 * sigma_g
+        stamp[stamp < low] = low
+        stamp -= np.min(stamp)
+        total = np.sum(stamp)
+        if total != 0:
+            stamp /= total
+        stamp = np.nan_to_num(stamp, nan=0.0)
+        normed.append(stamp.reshape(stamp_dimm, stamp_dimm))
+    return np.array(normed)
+
+
 def filter_stamps_by_cnn(
     result_data,
     model_path,
@@ -114,10 +136,37 @@ def filter_stamps_by_cnn(
     stamp_radius=10,
     coadd_radius=11,
     verbose=False,
+    device=None,
 ):
-    """Classify each result's coadd stamp with the CNN (not ported yet: the
-    CNN is ROADMAP Queue 1 item 4)."""
-    raise NotImplementedError(
-        "filter_stamps_by_cnn: the CNN stamp classifier is not ported to kbmod_tpu_torch yet "
-        "(ROADMAP Queue 1 item 4, stamp vetting)"
-    )
+    """Classify each result's coadd stamp with the CNN on ``device`` (CUDA
+    unless ``device="cpu"``), appending prob_real / prob_bogus / cnn_class
+    columns. ``model_path`` is a weights file (see ``StampClassifier``);
+    None runs an untrained network."""
+    from kbmod_tpu_torch.models.cnn import StampClassifier
+
+    coadd_column = f"coadd_{coadd_type}"
+    if coadd_column not in result_data.colnames:
+        raise ValueError("result_data does not have provided coadd type as a column.")
+
+    stamps = np.asarray(result_data.table[coadd_column])
+    if stamps.ndim < 3:
+        stamps = np.array([s.reshape((coadd_radius * 2) + 1, (coadd_radius * 2) + 1) for s in stamps])
+
+    dimm_diff = coadd_radius - stamp_radius
+    if dimm_diff < 0:
+        raise ValueError(f"Provided stamp_radius {stamp_radius} is too large for the coadd size {stamps.shape}")
+    if dimm_diff > 0:
+        stamps = stamps[:, dimm_diff:-dimm_diff, dimm_diff:-dimm_diff]
+
+    stamp_dimm = (stamp_radius * 2) + 1
+    normalized = _normalize_stamps(stamps, stamp_dimm)
+
+    classifier = StampClassifier(model_type=model_type, stamp_width=stamp_dimm, model_path=model_path, device=device)
+    predictions = classifier.predict(normalized)
+
+    prob_real = predictions[:, 1]
+    prob_bogus = predictions[:, 0]
+    classifications = np.argmax(predictions, axis=1)
+    result_data.table["prob_real"] = prob_real
+    result_data.table["prob_bogus"] = prob_bogus
+    result_data.table["cnn_class"] = classifications != 0

@@ -1,2 +1,2 @@
 """Geometry helpers of the port: the MJD and calendar conversions
-(time_utils). The WCS and coordinate transforms are not ported yet."""
+(time_utils), the WCS (wcs) and the ecliptic rotations (ecliptic)."""

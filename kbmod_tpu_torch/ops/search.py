@@ -10,9 +10,17 @@ planes. The gathers that re-score the winners run as plain PyTorch on the
 search's device, over the code planes for a quantized stack; the sigma-G
 clipping and the pixel-major assembly run in numpy on the host, as in the
 JAX package.
+
+With the in-kernel sigma-G filter the search keeps an over-provisioned pool
+by unclipped lh (``KB_SIGMAG_TOPK_FACTOR`` times K) and re-ranks it by
+clipped lh, refining the pixels whose membership the re-rank changed
+(unless ``KB_SIGMAG_AUTO=0``); ``KB_SIGMAG_MODE=exact`` instead scores
+every candidate by its clipped lh (:func:`search_topk_sigmag_exact`, plain
+PyTorch on the search's device, as the JAX package runs it in XLA).
 """
 
 import logging
+import os
 import time
 from functools import partial
 from typing import NamedTuple
@@ -32,11 +40,48 @@ FLT_MAX = float(np.finfo(np.float32).max)
 SIGMAG_POOL_FACTOR = 4
 # Rows per winner re-scoring gather.
 EVAL_CHUNK = 524288
+# The exact sigma-G search: start-pixel rows a tile, and the (candidate,
+# pixel, time) samples whose curves one step gathers and sorts at most
+# (more only when one candidate's tile holds more).
+EXACT_ROW_TILE = 256
+EXACT_CHUNK_SAMPLES = 1 << 25
+# Device bytes one such sample holds at most: the int64 index, the masks,
+# the gathered float32 values and their sort (values, int64 order, the
+# sorted psi/phi and the kept products).
+EXACT_BYTES_PER_SAMPLE = 96
+
+
+def sigmag_pool_factor():
+    """The sigma-G pool's over-provisioning factor: ``KB_SIGMAG_TOPK_FACTOR``
+    when set, else SIGMAG_POOL_FACTOR."""
+    return int(os.environ.get("KB_SIGMAG_TOPK_FACTOR", str(SIGMAG_POOL_FACTOR)))
 
 
 # ----------------------------------------------------------------------
 # Host-side offset precomputation
 # ----------------------------------------------------------------------
+
+def snap_vy_rows(vys, zeroed_times, max_row_error=0.75):
+    """Quantize vy onto a lattice so that the rounded per-time row sequences
+    ``floor(vy*t + 0.5)`` collapse into few classes, with a bounded row
+    error: vy snaps to multiples of ``q = 2*max_row_error/t_max``, so every
+    candidate's row moves at most ``max_row_error`` px at the last
+    observation. Column offsets (vx) are untouched. The snapped vy is the
+    searched and reported velocity (``KB_SNAP_ROW_ERROR`` in
+    ``StackSearch.search_all``).
+
+    Returns
+    -------
+    (snapped, num_classes) : (np.ndarray float32 of vy, int)
+    """
+    vys = np.asarray(vys, dtype=np.float64)
+    t_max = float(np.max(zeroed_times)) if len(np.asarray(zeroed_times)) else 0.0
+    if t_max <= 0.0 or max_row_error <= 0.0:
+        return vys.astype(np.float32), len(np.unique(vys.astype(np.float32)))
+    q = 2.0 * float(max_row_error) / t_max
+    snapped = (np.round(vys / q) * q).astype(np.float32)
+    return snapped, len(np.unique(snapped))
+
 
 def trajectory_offsets(vxs, vys, times):
     """Integer pixel offsets floor(v * t + 0.5) for each (candidate, time).
@@ -92,6 +137,22 @@ class EncodedPlanes(NamedTuple):
     @property
     def device(self):
         return self.psi_codes.device
+
+    def decode_full(self):
+        """The decoded (psi, phi, valid) planes: float32 zero-filled where
+        masked and a uint8 validity plane (valid where the psi code is
+        non-zero; phi is 0 where its own code is). About 4.5x the uint8
+        codes' memory; only the exact sigma-G search needs whole planes."""
+        dev = self.device
+        em = np.asarray(self.em, dtype=np.float32)
+        pc = _storage(self.psi_codes).to(torch.int32)
+        fc = _storage(self.phi_codes).to(torch.int32)
+        if self.psi_codes.dtype == torch.uint16:
+            pc, fc = pc & 0xFFFF, fc & 0xFFFF
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        psi = torch.where(pc == 0, zero, (pc.to(torch.float32) - 1.0) * _f32(em[1], dev) + _f32(em[0], dev))
+        phi = torch.where(fc == 0, zero, (fc.to(torch.float32) - 1.0) * _f32(em[3], dev) + _f32(em[2], dev))
+        return psi, phi, (pc != 0).to(torch.uint8)
 
 
 def _gather_codes(codes, tt, py, px):
@@ -330,6 +391,154 @@ def clipped_sigmag_scores(psi_v, phi_v, ok, sgl_L, sgl_H, coeff, width=2.0):
     return new_lh, new_flux, new_psi.astype(np.float32), new_phi.astype(np.float32)
 
 
+def _sqrt_rn(x):
+    """float32 sqrt correctly rounded on any device: through float64 (exact
+    once rounded back), since PyTorch's vectorized float32 sqrt on the CPU
+    is not always correctly rounded."""
+    return torch.sqrt(x.double()).float()
+
+
+def _clipped_scores(psi_v, phi_v, ok, sgl_L, sgl_H, coeff, width=2.0):
+    """Torch counterpart of :func:`clipped_sigmag_scores` (the JAX package's
+    ``_clipped_scores_jnp``), on the device of its inputs: (N, T) float32
+    curves and their (N, T) bool validity in, (new_lh, new_flux) float32
+    (N,) out.
+
+    The same stable sort of the psi/phi ratios (masked samples last, as
+    +inf), the same percentile indices (in float64, as numpy computes them)
+    and the same keep window, so the kept samples are those of the host
+    function; the kept sums are float32 sums in PyTorch's order.
+    """
+    N, T = psi_v.shape
+    dev = psi_v.device
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    one = torch.ones((), dtype=torch.float32, device=dev)
+    inf = torch.full((), float("inf"), dtype=torch.float32, device=dev)
+    n = ok.sum(dim=1)
+    nz = phi_v != 0
+    lc = torch.where(ok & nz, psi_v / torch.where(nz, phi_v, one), torch.where(ok, zero, inf))
+    vals, order = torch.sort(lc, dim=1, stable=True)
+    psi_sorted = torch.gather(torch.where(ok, psi_v, zero), 1, order)
+    phi_sorted = torch.gather(torch.where(ok, phi_v, zero), 1, order)
+
+    nf = n.to(torch.float64)
+    top = torch.clamp(n - 1, min=0)
+
+    def pct_idx(q):
+        # The reference's indexing: int(ceil(n*q) + 0.001) - 1.
+        idx = torch.floor(torch.ceil(nf * q) + 0.001).to(torch.int64) - 1
+        return torch.minimum(torch.clamp(idx, min=0), top)
+
+    iL = pct_idx(max(float(sgl_L), 0.0001))
+    iM = pct_idx(0.5)
+    iH = pct_idx(min(float(sgl_H), 0.9999))
+    vL, vM, vH = (vals.gather(1, i[:, None])[:, 0] for i in (iL, iM, iH))
+    sigma_g = _f32(coeff, dev) * (vH - vL)
+    reach = _f32(width, dev) * sigma_g
+    min_value = vM - reach
+    max_value = vM + reach
+
+    cols = torch.arange(T, device=dev)[None, :]
+    start = torch.minimum((vals < min_value[:, None]).sum(dim=1), iM)
+    gt_max = (vals > max_value[:, None]) & (cols > iM[:, None])
+    end = torch.where(gt_max.any(dim=1), gt_max.to(torch.uint8).argmax(dim=1), torch.clamp(n, max=T))
+    end = torch.minimum(end, n)
+    keep = (cols >= start[:, None]) & (cols < end[:, None])
+    safe = n > 0
+    new_psi = torch.where(safe, torch.where(keep, psi_sorted, zero).sum(dim=1), zero)
+    new_phi = torch.where(safe, torch.where(keep, phi_sorted, zero).sum(dim=1), zero)
+    good = new_phi > 0
+    safe_phi = torch.where(good, new_phi, one)
+    new_lh = torch.where(good, new_psi / _sqrt_rn(safe_phi), -one)
+    new_flux = torch.where(good, new_psi / safe_phi, -one)
+    return new_lh, new_flux
+
+
+def _exact_curves(psi, phi, valid, dxs, dys, x_min, x_max, y0, y1):
+    """The (Cc * N, T) psi/phi curves (0 where invalid) and validity of Cc
+    candidates ((Cc, T) int64 offsets) at the N = (y1 - y0) * (x_max -
+    x_min) start pixels of a row tile, candidate-major then pixel-major."""
+    T, H, W = psi.shape
+    dev = psi.device
+    ys = torch.arange(y0, y1, device=dev)
+    xs = torch.arange(x_min, x_max, device=dev)
+    tt = torch.arange(T, device=dev)
+    py = ys[None, :, None, None] + dys[:, None, None, :]  # (Cc, SHt, 1, T)
+    px = xs[None, None, :, None] + dxs[:, None, None, :]  # (Cc, 1, SW, T)
+    inb = (py >= 0) & (py < H) & (px >= 0) & (px < W)
+    flat = (tt * H + py.clamp(0, H - 1)) * W + px.clamp(0, W - 1)
+    ok = inb & (valid.reshape(-1)[flat] > 0)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    psi_v = torch.where(ok, psi.reshape(-1)[flat], zero)
+    phi_v = torch.where(ok, phi.reshape(-1)[flat], zero)
+    return psi_v.reshape(-1, T), phi_v.reshape(-1, T), ok.reshape(-1, T)
+
+
+def search_topk_sigmag_exact(
+    psi, phi, valid, dxs, dys, min_obs, min_lh, sigmag_coeff,
+    *, x_min, x_max, y_min, y_max, k_results, sgl_L, sgl_H,
+    row_tile=EXACT_ROW_TILE, cand_offset=0,
+):
+    """Exact sigma-G top-K over the search window (port of the JAX
+    package's ``search_topk_sigmag_exact`` and ``_sigmag_exact_tile``):
+    every candidate is scored by its CLIPPED lh at every start pixel.
+
+    Pre-gates (kernels.cu:201-203): obs >= min_obs, obs > 0 and unclipped
+    lh >= min_lh; insertion is gated on the clipped lh >= min_lh
+    (kernels.cu:318-330). Each pixel keeps the top ``k_results`` by (clipped
+    lh desc, candidate index asc). The window is searched in tiles of
+    ``row_tile`` start-pixel rows, candidates in chunks whose curves hold
+    about EXACT_CHUNK_SAMPLES samples; a chunk's curves are gathered and
+    sorted along T, and merged into the tile's lists by a stable sort.
+
+    psi, phi (T, H, W) float32 zero-filled and valid (T, H, W) uint8 on the
+    search's device; dxs, dys (C, T) integer offsets. Returns (K, SH, SW)
+    float32 lh (-FLT_MAX where empty) and int32 candidate indices (-1), on
+    the planes' device. Plain PyTorch: the reference runs this in XLA.
+    """
+    T = psi.shape[0]
+    dev = psi.device
+    dxs = torch.as_tensor(dxs, device=dev).to(torch.int64)
+    dys = torch.as_tensor(dys, device=dev).to(torch.int64)
+    C = dxs.shape[0]
+    K = int(k_results)
+    SH, SW = int(y_max) - int(y_min), int(x_max) - int(x_min)
+    out_lh = torch.full((K, SH, SW), -FLT_MAX, dtype=torch.float32, device=dev)
+    out_idx = torch.full((K, SH, SW), -1, dtype=torch.int32, device=dev)
+    neg = torch.full((), -FLT_MAX, dtype=torch.float32, device=dev)
+    none = torch.full((), -1, dtype=torch.int32, device=dev)
+    min_lh_t = _f32(min_lh, dev)
+    for y0 in range(int(y_min), int(y_max), int(row_tile)):
+        y1 = min(int(y_max), y0 + int(row_tile))
+        N = (y1 - y0) * SW
+        top_lh = torch.full((K, N), -FLT_MAX, dtype=torch.float32, device=dev)
+        top_idx = torch.full((K, N), -1, dtype=torch.int32, device=dev)
+        step = max(1, EXACT_CHUNK_SAMPLES // (N * T))
+        for c0 in range(0, C, step):
+            c1 = min(C, c0 + step)
+            psi_v, phi_v, ok = _exact_curves(psi, phi, valid, dxs[c0:c1], dys[c0:c1], int(x_min), int(x_max), y0, y1)
+            psi_sum = psi_v.sum(dim=1)
+            phi_sum = phi_v.sum(dim=1)
+            obs = ok.sum(dim=1)
+            unclipped = torch.where(
+                phi_sum > 0, psi_sum / _sqrt_rn(torch.clamp(phi_sum, min=1e-30)), -torch.ones_like(psi_sum)
+            )
+            clipped, _ = _clipped_scores(psi_v, phi_v, ok, sgl_L, sgl_H, sigmag_coeff)
+            del psi_v, phi_v, ok
+            ins = (obs >= min_obs) & (obs > 0) & (unclipped >= min_lh_t) & (clipped >= min_lh_t)
+            cidx = (torch.arange(c0, c1, dtype=torch.int32, device=dev) + int(cand_offset))[:, None]
+            new_lh = torch.where(ins, clipped, neg).reshape(c1 - c0, N)
+            new_idx = torch.where(ins.reshape(c1 - c0, N), cidx, none)
+            # The kept list first, then the chunk in index order: a stable
+            # sort keeps equal lh in candidate order.
+            merged_lh, order = torch.sort(torch.cat([top_lh, new_lh]), dim=0, descending=True, stable=True)
+            top_lh = merged_lh[:K]
+            top_idx = torch.cat([top_idx, new_idx]).gather(0, order[:K])
+        out_lh[:, y0 - int(y_min) : y1 - int(y_min)] = top_lh.reshape(K, y1 - y0, SW)
+        out_idx[:, y0 - int(y_min) : y1 - int(y_min)] = top_idx.reshape(K, y1 - y0, SW)
+    return out_lh, out_idx
+
+
 def sigmag_filtered_indices(values, sgl0, sgl1, sigmag_coeff, width):
     """The kept original indices after sigma-G filtering one value array
     (kernel_helpers.cpp:86-106)."""
@@ -416,11 +625,15 @@ def core_search(
     out pixel-major with K entries per pixel (kernels.cu:286), empty slots
     carrying lh = -FLT_MAX.
 
-    With ``do_sigmag`` the search keeps the top 4K per pixel by UNCLIPPED
-    lh and re-ranks that pool by the reference's clipped lh; pixels whose
-    kept membership the re-rank changed are re-scored against every
-    candidate (:func:`exact_refine_pixels`). ``timings`` (a dict) receives
-    the stage times "search_ms" and "assemble_ms".
+    With ``do_sigmag`` the search keeps the top ``KB_SIGMAG_TOPK_FACTOR``
+    (default 4) x K per pixel by UNCLIPPED lh and re-ranks that pool by the
+    reference's clipped lh; pixels whose kept membership the re-rank
+    changed are re-scored against every candidate
+    (:func:`exact_refine_pixels`) unless ``KB_SIGMAG_AUTO=0``. With
+    ``KB_SIGMAG_MODE=exact`` every candidate is scored by its clipped lh
+    (:func:`search_topk_sigmag_exact`, on decoded planes for a quantized
+    stack). ``timings`` (a dict) receives the stage times "search_ms" and
+    "assemble_ms".
     """
     dev = psi.device
     timer = _Timer(timings, dev)
@@ -429,18 +642,30 @@ def core_search(
     k = int(results_per_pixel)
     if gate_min_lh is None:
         gate_min_lh = bool(do_sigmag)
-    k_search = min(num_cand, SIGMAG_POOL_FACTOR * k if do_sigmag else k)
+    sigmag_mode = os.environ.get("KB_SIGMAG_MODE", "overprovision") if do_sigmag else ""
+    over = sigmag_pool_factor()
+    k_search = min(num_cand, over * k if (do_sigmag and sigmag_mode != "exact") else k)
     k_search = max(k_search, k)
 
     dxs, dys = trajectory_offsets(vxs, vys, times)
-    escalate = _SigmaGEscalation(do_sigmag, SIGMAG_POOL_FACTOR, k, num_cand)
+    escalate = _SigmaGEscalation(do_sigmag, sigmag_mode, over, k, num_cand)
     dxs_t = torch.as_tensor(dxs, device=dev)
     dys_t = torch.as_tensor(dys, device=dev)
     bounds = dict(
         x_min=int(x_min), x_max=int(x_max), y_min=int(y_min), y_max=int(y_max),
         k_results=int(k_search), gate_min_obs=gate_min_obs, gate_min_lh=bool(gate_min_lh),
     )
-    if isinstance(psi, EncodedPlanes):
+    if sigmag_mode == "exact":
+        # Every candidate scored and gated by its clipped lh, on whole
+        # planes (decoded for a quantized stack, as the reference does).
+        planes = psi.decode_full() if isinstance(psi, EncodedPlanes) else (psi, phi, valid)
+        top_lh, top_idx = search_topk_sigmag_exact(
+            *planes, dxs_t, dys_t, min_obs, min_lh, sigmag_coeff,
+            x_min=int(x_min), x_max=int(x_max), y_min=int(y_min), y_max=int(y_max),
+            k_results=int(k_search), sgl_L=sgl_L, sgl_H=sgl_H,
+        )
+        del planes
+    elif isinstance(psi, EncodedPlanes):
         # The quantized stack: the codes go straight through the encoded
         # kernels, which need no validity plane (code 0 is masked).
         top_lh, top_idx = search_topk_encoded(psi, dxs, dys, float(min_obs), float(min_lh), **bounds)
@@ -617,14 +842,20 @@ def _warn_on_pool_tail_churn(order, lh_px, k, k_search, threshold=0.01):
 
 
 class _SigmaGEscalation:
-    """Gate for the sigma-G pixel-exact refinement pass: on whenever the
-    over-provisioned pool is smaller than the candidate set (a full pool is
-    already exact). Pixels whose kept top-K membership the clipped re-rank
-    changed are then re-scored against every candidate
+    """Gate for the sigma-G pixel-exact refinement pass: on in the
+    over-provisioned mode whenever the pool is smaller than the candidate
+    set (a full pool is already exact), unless ``KB_SIGMAG_AUTO=0`` (warn
+    only). Pixels whose kept top-K membership the clipped re-rank changed
+    are then re-scored against every candidate
     (:func:`exact_refine_pixels`)."""
 
-    def __init__(self, do_sigmag, over, k, num_cand):
-        self.enabled = bool(do_sigmag) and int(over) * int(k) < int(num_cand)
+    def __init__(self, do_sigmag, sigmag_mode, over, k, num_cand):
+        self.enabled = (
+            bool(do_sigmag)
+            and sigmag_mode != "exact"
+            and int(over) * int(k) < int(num_cand)
+            and os.environ.get("KB_SIGMAG_AUTO", "1") != "0"
+        )
 
 
 def exact_refine_pixels(

@@ -8,9 +8,8 @@ column detection with side-car file IO, and ecsv/parquet/hdf5 round trips.
 
 Built on kbmod_tpu_torch.table.Table (no astropy dependency); the
 serialization formats are self-describing (JSON metadata header / parquet
-key-value metadata / hdf5 attrs) and the same as the JAX package's. A
-global WCS waits for the port's WCS: writing or reading one raises
-NotImplementedError.
+key-value metadata / hdf5 attrs) and the same as the JAX package's,
+a global WCS included (``kbmod_tpu_torch.wcs_utils.serialize_wcs``).
 """
 
 import copy
@@ -27,9 +26,6 @@ from kbmod_tpu_torch.table import Table, vstack
 
 logger = logging.getLogger(__name__)
 
-_WCS_DEFERRED = "serializing a Results table's WCS waits for the port's WCS"
-
-
 class Results:
     """A collection of candidate results with per-filter bookkeeping.
 
@@ -37,8 +33,8 @@ class Results:
     ----------
     table : `kbmod_tpu_torch.table.Table`
         The stored results data.
-    wcs : None
-        A global WCS (kept, but not serialized until the port has a WCS).
+    wcs : `kbmod_tpu_torch.geom.wcs.WCS` or None
+        A global WCS, serialized with the table.
     mjd_mid : `np.ndarray` or None
         Optional per-observation midpoint times (UTC MJD).
     track_filtered : `bool`
@@ -435,7 +431,9 @@ class Results:
     def _build_meta(self):
         meta = {}
         if self.wcs is not None:
-            raise NotImplementedError(_WCS_DEFERRED)
+            from kbmod_tpu_torch.wcs_utils import serialize_wcs
+
+            meta["wcs"] = serialize_wcs(self.wcs)
         if self.mjd_mid is not None:
             meta["mjd_mid"] = list(np.asarray(self.mjd_mid, dtype=float))
         shapes = self._detect_image_columns()
@@ -447,7 +445,9 @@ class Results:
     def _parse_table_metadata(meta):
         wcs = None
         if meta.get("wcs"):
-            raise NotImplementedError(_WCS_DEFERRED)
+            from kbmod_tpu_torch.wcs_utils import deserialize_wcs
+
+            wcs = deserialize_wcs(meta["wcs"])
         mjd_mid = np.asarray(meta["mjd_mid"], dtype=float) if meta.get("mjd_mid") else None
         image_column_shapes = meta.get("image_column_shapes")
         return wcs, mjd_mid, image_column_shapes

@@ -11,13 +11,17 @@ device is where the search, the sigma-G clipping and the coadds run.
 ``config["cpu_only"]`` keeps the reference's meaning: the search's CPU-path
 semantics (``search_all(..., on_gpu=False)``), not a choice of device.
 
+``cnn_filter`` vets the stamps with the port's ResNet; it needs a weights
+file (``cnn_model``), and the repository ships none.
+
 Not ported yet, and refused rather than ignored: WorkUnit inputs and RA/Dec
-output (they need the port's WCS), CNN vetting, and the JAX package's
-search checkpointing and profiling switches (``KB_SEARCH_CKPT_DIR``,
+output (they need the port's WorkUnit), and the JAX package's search
+checkpointing and profiling switches (``KB_SEARCH_CKPT_DIR``,
 ``KB_PROFILE_DIR``), which raise NotImplementedError when set.
 """
 
 import logging
+import os
 import time
 
 import numpy as np
@@ -35,11 +39,12 @@ from kbmod_tpu_torch.filters.sigma_g_filter import SigmaGClipping, apply_clipped
 from kbmod_tpu_torch.filters.sns_filters import peak_offset_filter, predictive_line_cluster
 from kbmod_tpu_torch.filters.stamp_filters import append_all_stamps, append_coadds, filter_stamps_by_cnn
 from kbmod_tpu_torch.ops.psi_phi import _conv_batch_budget, _padded_width
-from kbmod_tpu_torch.ops.search import EVAL_CHUNK, SIGMAG_POOL_FACTOR
+from kbmod_tpu_torch.ops.search import (
+    EVAL_CHUNK, EXACT_BYTES_PER_SAMPLE, EXACT_CHUNK_SAMPLES, EXACT_ROW_TILE, sigmag_pool_factor,
+)
 from kbmod_tpu_torch.ops.search_kernel import K2_CHUNK
 from kbmod_tpu_torch.results import Results, write_results_to_files_destructive
 from kbmod_tpu_torch.search import StackSearch, TrajectoryList
-from kbmod_tpu_torch.search.stack_search import SEARCH_SWITCHES, refuse_switches
 from kbmod_tpu_torch.trajectory_generator import create_trajectory_generator
 
 logger = logging.getLogger("kbmod.run_search")
@@ -50,6 +55,26 @@ PIPELINE_SWITCHES = {
     "KB_SEARCH_CKPT_DIR": lambda v: not v,
     "KB_PROFILE_DIR": lambda v: not v,
 }
+
+
+def refuse_switches(switches, where):
+    """Raise NotImplementedError naming the first switch of ``switches``
+    (name -> test of a default value) that the environment sets to a value
+    other than its default: the port would otherwise ignore it and return
+    other results than the JAX package without a word."""
+    for name, is_default in switches.items():
+        value = os.environ.get(name)
+        if value is None:
+            continue
+        try:
+            default = is_default(value)
+        except ValueError:
+            default = False
+        if not default:
+            raise NotImplementedError(
+                f"{where}: the environment switch {name}={value!r} is not ported to kbmod_tpu_torch yet; "
+                f"unset it or give it its default value"
+            )
 
 # Rows of psi/phi curves load_and_filter_results gathers and clips at once.
 RESULTS_BATCH = 100_000
@@ -124,14 +149,19 @@ def search_memory_budget(config, stack, num_candidates, device):
       masks the packing holds beside the kept ones;
     - padding: K2's copy of the float planes when the width is not a
       multiple of its 16-pixel chunk;
-    - maps: the (K', SH, SW) lh/index maps (8 bytes a slot), K' =
-      SIGMAG_POOL_FACTOR * K under the in-kernel sigma-G pool, and their
-      compaction on the card (17: the mask, int64 positions, the values);
+    - maps: the (K', SH, SW) lh/index maps (8 bytes a slot), K' = the
+      pool factor (``KB_SIGMAG_TOPK_FACTOR``, default 4) times K under the
+      in-kernel sigma-G pool, and their compaction on the card (17: the
+      mask, int64 positions, the values);
     - expand: the dedup expansion of the quantized search (a second set of
       maps and one band of its sort);
     - layouts: the offsets and the grouped kernels' window layouts;
     - gathers: one EVAL_CHUNK-row winner re-scoring gather over all T;
-    - curves: one RESULTS_BATCH-row curve gather and its sigma-G quantiles.
+    - curves: one RESULTS_BATCH-row curve gather and its sigma-G quantiles;
+    - exact: under ``KB_SIGMAG_MODE=exact``, the decoded planes of a
+      quantized stack (9 bytes a pixel and time), one candidate chunk's
+      curves over a row tile (EXACT_BYTES_PER_SAMPLE a sample) and the
+      tile's lists with their merge sort (24 bytes a slot).
     """
     T, H, W = stack.num_times, stack.height, stack.width
     C = int(num_candidates)
@@ -148,7 +178,9 @@ def search_memory_budget(config, stack, num_candidates, device):
     if not on_gpu:
         k = min(k, C)
     sigmag_pool = on_gpu and config["sigmaG_filter"] and config["gpu_filter"]
-    k_search = max(min(C, SIGMAG_POOL_FACTOR * k if sigmag_pool else k), k)
+    exact = sigmag_pool and os.environ.get("KB_SIGMAG_MODE", "overprovision") == "exact"
+    over = sigmag_pool_factor()
+    k_search = max(min(C, over * k if sigmag_pool and not exact else k), k)
 
     px, hw = T * H * W, H * W
     # Images of one PSF batch of the build (ops/psi_phi.py), doubled where
@@ -172,6 +204,15 @@ def search_memory_budget(config, stack, num_candidates, device):
     terms["gathers"] = GATHER_BYTES_PER_SAMPLE * min(EVAL_CHUNK, k_search * SH * SW) * T
     rows = min(RESULTS_BATCH, k_search * SH * SW)
     terms["curves"] = (GATHER_BYTES_PER_SAMPLE + QUANTILE_BYTES_PER_SAMPLE) * rows * T
+    terms["exact"] = 0
+    if exact:
+        tile = min(EXACT_ROW_TILE, SH) * SW
+        chunk = max(1, EXACT_CHUNK_SAMPLES // (tile * T))
+        terms["exact"] = (
+            (9 * px if quantized else 0)
+            + EXACT_BYTES_PER_SAMPLE * min(chunk, C) * tile * T
+            + 24 * (k_search + min(chunk, C)) * tile
+        )
     terms["total"] = sum(terms.values())
     return terms
 
@@ -446,6 +487,7 @@ class SearchRunner:
                 coadd_type=config["cnn_coadd_type"],
                 stamp_radius=config["cnn_stamp_radius"],
                 coadd_radius=radius,
+                device=self.device,
             )
             self._end_phase("cnn filtering")
 
@@ -460,7 +502,6 @@ class SearchRunner:
         NotImplementedError for a WorkUnit and for the environment switches
         the port does not honour yet."""
         refuse_switches(PIPELINE_SWITCHES, "SearchRunner.run_search")
-        refuse_switches(SEARCH_SWITCHES, "SearchRunner.run_search")
         if workunit is not None:
             raise NotImplementedError("SearchRunner.run_search: WorkUnit inputs wait for the port's WCS and WorkUnit")
         if device is not None:

@@ -11,8 +11,12 @@ kernel K1. A float stack (num_bytes -1 or 4) is searched by kernel K2; a
 quantized one (num_bytes 1 or 2) keeps uint8/uint16 code planes, is
 searched by kernels K3-K5 through the encoded dispatcher, and re-scores its
 winners by gathering codes, never building decoded float planes.
-Checkpointing, multi-device sharding and the exact sigma-G mode are not
-ported yet.
+
+The JAX package's result-changing switches are honoured: ``KB_SNAP_ROW_ERROR``
+snaps vy onto a row lattice before the search, ``KB_COMPACT_RESULTS=0``
+keeps the dense result layout, and ``KB_SIGMAG_MODE``,
+``KB_SIGMAG_TOPK_FACTOR`` and ``KB_SIGMAG_AUTO`` reach ``core_search``.
+Checkpointing and multi-device sharding are not ported yet.
 """
 
 import logging
@@ -29,40 +33,6 @@ from kbmod_tpu_torch.search.trajectory import Trajectory
 from kbmod_tpu_torch.search.trajectory_list import TrajectoryList
 
 logger = logging.getLogger("kbmod.search.run_search")
-
-# The JAX package's environment switches that change a search's results
-# (docs/env_vars.md), which the port does not honour yet: each name maps to
-# a test that its value keeps the default behaviour. Switches that only pick
-# a TPU route (KB_SEARCH_KERNEL, KB_SHARDED, KB_SHARD_MODE, KB_TIMING) are
-# ignored.
-SEARCH_SWITCHES = {
-    "KB_SNAP_ROW_ERROR": lambda v: float(v or 0.0) <= 0.0,
-    "KB_COMPACT_RESULTS": lambda v: v != "0",
-    "KB_SIGMAG_MODE": lambda v: v in ("", "overprovision"),
-    "KB_SIGMAG_TOPK_FACTOR": lambda v: int(v) == 4,
-    "KB_SIGMAG_AUTO": lambda v: v != "0",
-}
-
-
-def refuse_switches(switches, where):
-    """Raise NotImplementedError naming the first switch of ``switches``
-    (name -> test of a default value) that the environment sets to a value
-    other than its default: the port would otherwise ignore it and return
-    other results than the JAX package without a word."""
-    for name, is_default in switches.items():
-        value = os.environ.get(name)
-        if value is None:
-            continue
-        try:
-            default = is_default(value)
-        except ValueError:
-            default = False
-        if not default:
-            raise NotImplementedError(
-                f"{where}: the environment switch {name}={value!r} is not ported to kbmod_tpu_torch yet; "
-                f"unset it or give it its default value"
-            )
-
 
 class _SearchParams:
     """Mirror of the reference's SearchParameters (common.h:119-161)."""
@@ -282,8 +252,11 @@ class StackSearch:
         result set unconditionally (stack_search.cpp:267-281), so rows the
         kernel already scored below min_lh can be dropped inside the
         assembly instead of being materialized and filtered. The
-        post-filter results are identical.
+        post-filter results are identical. ``KB_COMPACT_RESULTS=0`` keeps
+        the dense reference layout (kernels.cu:286).
         """
+        if os.environ.get("KB_COMPACT_RESULTS", "1") == "0":
+            return None
         return self.params.min_lh
 
     def search_all(self, search_list, on_gpu=True):
@@ -295,10 +268,10 @@ class StackSearch:
         and the in-kernel sigma-G filter when enabled); ``False`` uses
         CPU-path semantics (no gating, no sigma-G, keeps
         min(results_per_pixel, num_candidates) per pixel). Both run on the
-        search's device. Raises NotImplementedError when one of
-        ``SEARCH_SWITCHES`` is set to another value than its default.
+        search's device. ``KB_SNAP_ROW_ERROR=<px>`` snaps the candidates' vy
+        first (:func:`~kbmod_tpu_torch.ops.search.snap_vy_rows`); the
+        snapped vy is searched and reported.
         """
-        refuse_switches(SEARCH_SWITCHES, "StackSearch.search_all")
         p = self.params
         max_results = self.compute_max_results()
         p.total_results = max_results
@@ -315,6 +288,13 @@ class StackSearch:
             vys = np.array([t.vy for t in search_list], dtype=np.float32)
         if len(vxs) == 0:
             raise RuntimeError("No candidate trajectories to search.")
+
+        snap_err = float(os.environ.get("KB_SNAP_ROW_ERROR", "0") or 0.0)
+        if snap_err > 0.0:
+            vys, n_classes = search_ops.snap_vy_rows(vys, self._zeroed_times, snap_err)
+            logger.info(
+                f"Row-class snapping (max err {snap_err}px): {len(vys)} candidates -> {n_classes} vy classes."
+            )
 
         if on_gpu:
             rpp = p.results_per_pixel

@@ -1,10 +1,11 @@
 """kbmod_tpu_torch stands alone: it imports and runs a CPU search (float
-and uint8) with ``jax`` and ``kbmod_tpu`` blocked, and the whole
-``SearchRunner`` pipeline (ECSV output, the default clustering) with
-scikit-learn, PyYAML, pandas, pyarrow, psutil and h5py blocked too; no
-module of the port (``scripts/`` included) nor ``chip_smoke.py`` imports
-JAX or the JAX package at any depth of its code, and an entry point left to
-its default device (CUDA) raises on a host without a card."""
+and uint8) with ``jax``, ``flax`` and ``kbmod_tpu`` blocked, and the whole
+``SearchRunner`` pipeline (ECSV output, the default clustering, then CNN,
+brightness and known-object vetting of its rows) with scikit-learn,
+PyYAML, pandas, pyarrow, psutil and h5py blocked too; no module of the
+port (``scripts/`` included) nor ``chip_smoke.py`` imports JAX, flax or
+the JAX package at any depth of its code, and an entry point left to its
+default device (CUDA) raises on a host without a card."""
 
 import ast
 import os
@@ -21,6 +22,7 @@ _SCRIPT = textwrap.dedent(
     """
     import sys
     sys.modules["jax"] = None
+    sys.modules["flax"] = None
     sys.modules["kbmod_tpu"] = None
     import numpy as np
     import kbmod_tpu_torch
@@ -42,7 +44,7 @@ _SCRIPT = textwrap.dedent(
     q.search_all(list(VelocityGridSearch(5, 1.0, 5.0, 5, -1.0, 3.0)), True)
     best_q = q.get_results(0, 1)[0]
     assert (best_q.x, best_q.y) == (9, 14), best_q
-    assert not any(m == "jax" or m.startswith(("jax.", "kbmod_tpu.")) for m in sys.modules
+    assert not any(m in ("jax", "flax") or m.startswith(("jax.", "flax.", "kbmod_tpu.")) for m in sys.modules
                    if sys.modules[m] is not None)
     print("OK", best, best_q)
     """
@@ -55,7 +57,7 @@ _SCRIPT = textwrap.dedent(
 _PIPELINE_SCRIPT = textwrap.dedent(
     """
     import sys
-    for name in ("jax", "kbmod_tpu", "sklearn", "yaml", "pandas", "pyarrow", "psutil", "h5py"):
+    for name in ("jax", "flax", "kbmod_tpu", "sklearn", "yaml", "pandas", "pyarrow", "psutil", "h5py"):
         sys.modules[name] = None
     import os, tempfile
     import numpy as np
@@ -81,7 +83,31 @@ _PIPELINE_SCRIPT = textwrap.dedent(
     assert (back["x"] == keep["x"]).all() and (back["coadd_sum"] == keep["coadd_sum"]).all()
     best = int(np.argmax(keep["likelihood"]))
     assert abs(keep["x"][best] - 12) <= 1 and abs(keep["y"][best] - 20) <= 1, (keep["x"][best], keep["y"][best])
-    bad = [m for m in ("jax", "kbmod_tpu", "sklearn", "yaml", "pandas", "pyarrow", "psutil", "h5py")
+
+    # Vetting of the pipeline's rows: a seeded resnet18 state_dict file,
+    # the brightness filter and a catalog made from the best row's path.
+    import torch
+    from kbmod_tpu_torch.filters.brightness_filters import apply_brightness_search_filter
+    from kbmod_tpu_torch.filters.known_object_filters import KnownObjsMatcher
+    from kbmod_tpu_torch.filters.stamp_filters import filter_stamps_by_cnn
+    from kbmod_tpu_torch.models.cnn import StampClassifier
+    from kbmod_tpu_torch.trajectory_utils import trajectory_predict_skypos
+    from kbmod_tpu_torch.wcs_utils import make_fake_wcs
+    weights = os.path.join(os.path.dirname(out), "resnet18.pt")
+    torch.save(StampClassifier("resnet18", 21, seed=0, device="cpu").model.state_dict(), weights)
+    filter_stamps_by_cnn(keep, weights, coadd_type="mean", stamp_radius=10, coadd_radius=10, device="cpu")
+    assert keep["prob_real"].shape == (len(keep),)
+    apply_brightness_search_filter(keep, ds.stack_py, device="cpu")
+    wcs = make_fake_wcs(200.0, -7.0, 36, 40, 1.0 / 3600.0)
+    trj = keep.make_trajectory_list()[int(np.argmax(keep["likelihood"]))]
+    sky = trajectory_predict_skypos(trj, wcs, np.asarray(ds.stack_py.times))
+    from kbmod_tpu_torch.table import Table
+    catalog = Table({"Name": np.array(["obj"] * len(times), dtype=object), "RA": sky.ra_deg, "DEC": sky.dec_deg,
+                     "mjd_mid": np.asarray(ds.stack_py.times)})
+    matcher = KnownObjsMatcher(catalog, np.asarray(ds.stack_py.times), "ko", sep_thresh=0.5)
+    matcher.match(keep, wcs)
+    assert "obj" in keep["ko"][int(np.argmax(keep["likelihood"]))]
+    bad = [m for m in ("jax", "flax", "kbmod_tpu", "sklearn", "yaml", "pandas", "pyarrow", "psutil", "h5py")
            if sys.modules.get(m) is not None]
     assert not bad, bad
     print("OK", len(keep))
@@ -124,7 +150,7 @@ def _imported_modules(path):
 def test_chip_smoke_imports_no_jax():
     names = _imported_modules(os.path.join(REPO_ROOT, "chip_smoke.py"))
     assert any(n.startswith("kbmod_tpu_torch") for n in names)
-    bad = [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "kbmod_tpu")]
+    bad = [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "flax", "kbmod_tpu")]
     assert not bad, f"chip_smoke.py imports {bad}"
 
 
@@ -139,15 +165,18 @@ _PORT_FILES = sorted(
 def test_port_walk_finds_every_package():
     assert "kbmod_tpu_torch/scripts/exactrow_microbench.py" in _PORT_FILES
     assert "kbmod_tpu_torch/ops/search_kernel.py" in _PORT_FILES
+    for new in ("models/cnn.py", "filters/brightness_filters.py", "filters/known_object_filters.py",
+                "geom/wcs.py", "geom/ecliptic.py", "wcs_utils.py"):
+        assert f"kbmod_tpu_torch/{new}" in _PORT_FILES
     assert len(_PORT_FILES) >= 25
 
 
 @pytest.mark.parametrize("path", _PORT_FILES)
 def test_port_module_imports_no_jax(path):
     """Every module of the port, at any depth of its code, imports neither
-    JAX nor the JAX package (relative imports stay inside the port)."""
+    JAX, flax nor the JAX package (relative imports stay inside the port)."""
     names = _imported_modules(os.path.join(REPO_ROOT, path))
-    bad = [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "kbmod_tpu")]
+    bad = [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "flax", "kbmod_tpu")]
     assert not bad, f"{path} imports {bad}"
 
 

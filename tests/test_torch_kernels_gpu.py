@@ -613,3 +613,133 @@ def test_search_runner_on_card_equals_cpu(dev, tmp_path, monkeypatch, num_bytes,
               "coadd_sum", "coadd_median"):
         np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
     np.testing.assert_allclose(got["coadd_mean"], ref["coadd_mean"], rtol=1e-6)
+
+
+def test_exact_sigmag_on_card_equals_cpu(dev, monkeypatch):
+    """KB_SIGMAG_MODE=exact on the card against the port's CPU run of the
+    same crop. The maps: indices equal except where two candidates' clipped
+    lh tie within the tolerance, lh within 1e-5 * max(1, |lh|) (ROADMAP
+    Queue 3; the curves' sums run in another order on the card). The
+    ``StackSearch`` rows: equal, lh and flux bit for bit (the assembly
+    re-scores the same gathered samples on the host)."""
+    from kbmod_tpu_torch.fake_data.fake_data_creator import FakeDataSet, create_fake_times
+    from kbmod_tpu_torch.ops import search as ops
+    from kbmod_tpu_torch.search import StackSearch, Trajectory
+    from kbmod_tpu_torch.trajectory_generator import KBMODV1Search
+
+    rng = np.random.default_rng(31)
+    T, H, W, C, K = 12, 24, 40, 30, 4
+    valid = (rng.uniform(size=(T, H, W)) > 0.05).astype(np.uint8)
+    psi = rng.normal(1.0, 0.5, (T, H, W))
+    hit = rng.random((T, H, W)) < 0.05
+    psi[hit] = rng.choice([-30.0, 30.0], int(hit.sum()))
+    psi = np.where(valid, psi, 0).astype(np.float32)
+    phi = np.where(valid, rng.uniform(0.5, 2.0, (T, H, W)), 0).astype(np.float32)
+    dxs, dys = trajectory_offsets(rng.uniform(-3, 3, C), rng.uniform(-3, 3, C), np.arange(T) * 0.3)
+    kw = dict(x_min=-2, x_max=W, y_min=0, y_max=H, k_results=K, sgl_L=0.25, sgl_H=0.75, row_tile=7)
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        planes = [torch.as_tensor(a, device=where) for a in (psi, phi, valid)]
+        out[where.type] = [a.cpu().numpy() for a in ops.search_topk_sigmag_exact(*planes, dxs, dys, 4.0, 0.5, 0.7413,
+                                                                                  **kw)]
+        own = [ops.search_topk_sigmag_exact(*planes, dxs[c:c + 1], dys[c:c + 1], 4.0, 0.5, 0.7413,
+                                            **dict(kw, k_results=1))[0][0].cpu().numpy() for c in range(C)]
+        out[where.type + "_own"] = own
+    (g_lh, g_idx), (r_lh, r_idx) = out["cuda"], out["cpu"]
+    bound = 1e-5 * np.maximum(1.0, np.abs(r_lh))
+    assert np.array_equal(g_idx < 0, r_idx < 0) and (g_idx >= 0).sum() > 0.5 * g_idx.size
+    same = g_idx == r_idx
+    assert np.all(np.abs(g_lh[same & (g_idx >= 0)] - r_lh[same & (g_idx >= 0)]) <= bound[same & (g_idx >= 0)])
+    for k, i, j in np.argwhere(~same):
+        a, b = g_idx[k, i, j], r_idx[k, i, j]
+        assert abs(out["cpu_own"][a][i, j] - out["cpu_own"][b][i, j]) <= 2 * bound[k, i, j]
+
+    monkeypatch.setenv("KB_SIGMAG_MODE", "exact")
+    times = create_fake_times(10, t0=57130.2, obs_per_day=2, intra_night_gap=0.05)
+    ds = FakeDataSet(64, 48, times, psf_val=1.2, mask_fraction=0.03, use_seed=19)
+    ds.insert_object(Trajectory(x=30, y=20, vx=4.0, vy=-1.5, flux=250.0))
+    st = ds.stack_py
+    rows = []
+    for where in (dev, "cpu"):
+        s = StackSearch(st.sci, st.var, st.psfs, st.zeroed_times, -1, device="cpu")
+        if where is dev:
+            s = _on_card(s, dev)
+        s.set_results_per_pixel(2)
+        s.set_min_obs(5)
+        s.enable_gpu_sigmag_filter([0.25, 0.75], 0.7413, 3.0)
+        s.search_all(list(KBMODV1Search(5, 2.0, 6.0, 5, -0.6, 0.2)), True)
+        rows.append(s.results.get_arrays())
+    for k in ("x", "y", "vx", "vy", "obs_count", "lh", "flux"):
+        np.testing.assert_array_equal(rows[0][k], rows[1][k], err_msg=k)
+
+
+def _on_card(search, dev):
+    """A CPU-built float StackSearch with its planes moved to the card (both
+    runs search the same planes)."""
+    from kbmod_tpu_torch.ops.psi_phi import psi_phi_array_from_numpy
+
+    arr = search.psi_phi_array
+    search.device = dev
+    search.psi_phi_array = psi_phi_array_from_numpy(
+        arr.psi.numpy(), arr.phi.numpy(), arr.valid.numpy(), arr.times, arr.meta, device=dev)
+    return search
+
+
+@pytest.mark.parametrize("model_type", ["resnet18", "resnet50"])
+def test_cnn_logits_on_card_equal_cpu(dev, model_type):
+    """The classifier's logits on the card (cuDNN convolutions in float32,
+    TF32 off) against the CPU run of the same seeded weights: within 1e-4 *
+    (1 + max |logit|) (the convolutions sum in another order); the class
+    equal wherever the two logits differ by more than that."""
+    from kbmod_tpu_torch.models.cnn import StampClassifier
+
+    stamps = np.random.default_rng(3).normal(size=(64, 21, 21)).astype(np.float32)
+    got = StampClassifier(model_type, 21, seed=4, device=dev).predict(stamps)
+    want = StampClassifier(model_type, 21, seed=4, device="cpu").predict(stamps)
+    tol = 1e-4 * (1.0 + np.abs(want).max())
+    np.testing.assert_allclose(got, want, rtol=0, atol=tol)
+    clear = np.abs(want[:, 1] - want[:, 0]) > tol
+    np.testing.assert_array_equal(got.argmax(axis=1)[clear], want.argmax(axis=1)[clear])
+
+
+def test_snapped_u8_search_k5_equals_twin(dev, monkeypatch):
+    """The uint8 search under KB_SNAP_ROW_ERROR goes through K5 (the snapped
+    rows fill the grouping plan), K5 bit-equal to its twin on the snapped
+    offsets, and the object found with a vy on the lattice."""
+    from kbmod_tpu_torch.fake_data.fake_data_creator import FakeDataSet, create_fake_times
+    from kbmod_tpu_torch.ops.search import snap_vy_rows
+    from kbmod_tpu_torch.ops.search_encoded import encoded_route
+    from kbmod_tpu_torch.ops.search_plan import _dedup_plan_cached
+    from kbmod_tpu_torch.search import StackSearch, Trajectory
+    from kbmod_tpu_torch.trajectory_generator import KBMODV1Search
+
+    monkeypatch.setenv("KB_SNAP_ROW_ERROR", "0.75")
+    times = create_fake_times(12, 57130.2, 4, 0.02, 1)
+    ds = FakeDataSet(64, 64, times, use_seed=77, psf_val=1.4)
+    ds.insert_object(Trajectory(x=12, y=15, vx=14.0, vy=9.0, flux=400.0))
+    st = ds.stack_py
+    cands = list(KBMODV1Search(15, 10.0, 20.0, 15, 0.3, 0.9))
+    s = StackSearch(st.sci, st.var, st.psfs, st.zeroed_times, 1, device=dev)
+    s.set_min_obs(8)
+    launches = search_encoded_kernel.search_grouped.launches
+    s.search_all(cands, True)
+    assert search_encoded_kernel.search_grouped.launches > launches
+    assert "grouped" in search_topk_encoded.last_route
+    best = s.get_results(0, 1)[0]
+    q = 2 * 0.75 / float(np.max(st.zeroed_times))
+    assert (best.x, best.y) == (12, 15) and abs(best.vy / q - round(best.vy / q)) < 1e-3
+
+    vxs = np.array([c.vx for c in cands], np.float32)
+    vys, _ = snap_vy_rows(np.array([c.vy for c in cands], np.float32), st.zeroed_times, 0.75)
+    dxs, dys = trajectory_offsets(vxs, vys, st.zeroed_times)
+    dedup = _dedup_plan_cached(dxs, dys, 1.1)
+    if dedup is not None:
+        dxs, dys = dedup[0], dedup[1]
+    planes = s._eval_planes()[0]
+    route, plan = encoded_route(planes.psi_codes.dtype, len(st.zeroed_times), dys)
+    assert route == "grouped"
+    args = (torch.as_tensor(dxs, device=dev), torch.as_tensor(dys, device=dev), 8.0, 0.0)
+    kw = dict(x_min=0, x_max=64, y_min=0, y_max=64, k_results=8)
+    got = search_encoded_kernel.search_grouped(planes, *args, plan=plan, **kw)
+    ref = search_encoded_kernel.search_topk_encoded_shift(planes.psi_codes, planes.phi_codes, *args, planes.em, **kw)
+    assert torch.equal(got[1], ref[1]) and torch.equal(got[0], ref[0])

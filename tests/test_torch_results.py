@@ -148,7 +148,19 @@ def test_destructive_write_side_files(tmp_path):
 
 
 def test_wcs_waits_for_the_port(tmp_path):
+    """The port's WCS (once a deferral) serializes with the table: a file
+    the port writes reads back in the JAX package with an equal WCS, and
+    the other way round."""
+    from kbmod_tpu.results import Results as JResults
+    from kbmod_tpu.wcs_utils import make_fake_wcs as j_fake_wcs, wcs_fits_equal as j_equal
+    from kbmod_tpu_torch.wcs_utils import make_fake_wcs, wcs_fits_equal
+
     got = TResults.from_trajectories(TTrajectoryList(dict(_rows()[0])))
-    got.wcs = object()
-    with pytest.raises(NotImplementedError, match="WCS"):
-        got.write_table(tmp_path / "w.ecsv")
+    got.wcs = make_fake_wcs(200.5, -10.25, 300, 400, deg_per_pixel=0.27 / 3600)
+    got.write_table(tmp_path / "w.ecsv")
+    back = JResults.read_table(tmp_path / "w.ecsv")
+    assert j_equal(back.wcs, j_fake_wcs(200.5, -10.25, 300, 400, deg_per_pixel=0.27 / 3600))
+    back.write_table(tmp_path / "j.ecsv")
+    again = TResults.read_table(tmp_path / "j.ecsv")
+    assert wcs_fits_equal(again.wcs, got.wcs)
+    np.testing.assert_allclose(again.wcs.pixel_to_world_values(12.0, 34.0), got.wcs.pixel_to_world_values(12.0, 34.0))

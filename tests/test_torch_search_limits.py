@@ -4,15 +4,17 @@
   maps on the card); the only limit is the (K, SH, SW) maps' memory: when
   the card cannot hold them the wrappers raise an error that names the
   size (tested here with a faked out-of-memory allocator). The K =
-  128 twin equals the JAX package's ``search_topk_shift`` (XLA): lh within
-  2 float32 ulps, indices equal except where two candidates' lh tie that
-  closely at the pixel (the documented tie rule, ROADMAP Queue 3).
-- switches: each of the seven switches the JAX package reads that changes
-  results, set to a value other than its default, raises
-  NotImplementedError naming it (the five search switches in
-  ``StackSearch.search_all``, the two pipeline switches in
-  ``SearchRunner.run_search`` and ``configure_kb_search_stack``); set to its
-  default it does not. Switches that only pick a TPU route are ignored.
+  128 twin equals the JAX package's ``search_topk_shift`` (XLA): both
+  sides' lh within the float64 bound of tests/test_torch_search_kernel.py,
+  indices equal except where two candidates' lh tie within it at the pixel
+  (the documented tie rule, ROADMAP Queue 3).
+- switches: the five search switches the JAX package reads that change
+  results are honoured: set or at its default, each gives the JAX
+  package's ``StackSearch`` results. The two pipeline switches, set to a
+  value other than their default, raise NotImplementedError naming them
+  in ``SearchRunner.run_search`` and ``configure_kb_search_stack``; at
+  their default they do not. Switches that only pick a TPU route are
+  ignored.
 """
 
 from pathlib import Path
@@ -23,12 +25,16 @@ import pytest
 import torch
 
 from kbmod_tpu.ops.search import search_topk_shift, trajectory_offsets
+from kbmod_tpu.search import StackSearch as JStackSearch
+from kbmod_tpu.trajectory_generator import KBMODV1Search
 
 from kbmod_tpu_torch.configuration import SearchConfiguration
 from kbmod_tpu_torch.fake_data.fake_data_creator import FakeDataSet, create_fake_times
 from kbmod_tpu_torch.ops import search_encoded_kernel, search_kernel
 from kbmod_tpu_torch.run_search import SearchRunner, configure_kb_search_stack
 from kbmod_tpu_torch.search import StackSearch, Trajectory
+from test_torch_search_kernel import assert_lh_match, f64_lh
+from test_torch_stack_search import OBJ, _assert_rows_match, _pair, candidates, stack  # noqa: F401
 
 CSRC = Path(search_kernel.__file__).resolve().parent.parent / "csrc"
 K = 128
@@ -96,10 +102,6 @@ def test_cpu_wrappers_take_long_lists(wrapper):
     assert lh.shape == (K, H, W) and int((idx[-1] >= 0).sum()) > 0
 
 
-def _ulps(a, b):
-    return np.abs(a.view(np.int32).astype(np.int64) - b.view(np.int32).astype(np.int64))
-
-
 def test_k128_twin_matches_jax():
     rng = np.random.default_rng(128)
     T, H, W, C = 5, 20, 24, 160
@@ -115,13 +117,10 @@ def test_k128_twin_matches_jax():
     args = [torch.as_tensor(a) for a in (psi, phi, valid, dxs, dys)]
     lh, idx = (a.numpy() for a in search_kernel.search_topk(*args, 2.0, 0.0, **kw))
     assert lh.shape == (K, H + 1, W + 2) and int((idx[-1] >= 0).sum()) > 0
-    assert np.all(np.sign(lh) == np.sign(ref_lh)) and _ulps(lh, ref_lh).max() <= 2
     one = dict(kw, k_results=1)
     own = [search_kernel.search_topk(*args[:3], args[3][c : c + 1], args[4][c : c + 1], 2.0, 0.0, **one)[0][0].numpy()
            for c in range(C)]
-    for k, i, j in np.argwhere(idx != ref_idx):
-        a, b = idx[k, i, j], ref_idx[k, i, j]
-        assert a >= 0 and b >= 0 and _ulps(own[a][i, j], own[b][i, j]) <= 2, (k, i, j)
+    assert_lh_match((lh, idx), (ref_lh, ref_idx), own, *f64_lh(psi, phi, valid, dxs, dys, -2, W, 0, H + 1))
 
 
 def _small_search():
@@ -136,16 +135,60 @@ def _small_search():
 
 @pytest.mark.parametrize("default", [False, True], ids=["set", "default"])
 @pytest.mark.parametrize("name", sorted(SEARCH_SWITCHES))
-def test_search_switches_refused(monkeypatch, name, default):
-    s, _ = _small_search()
+def test_search_switches_honoured(monkeypatch, stack, candidates, name, default):
+    """Each search switch, set or at its default, gives the JAX package's
+    results: the two searches run on the JAX package's planes of the stack
+    of tests/test_torch_stack_search.py, with the in-kernel sigma-G filter
+    over its 36 candidates at 2 results a pixel (the pool of 8 or 16 is
+    smaller than the grid)."""
     monkeypatch.setenv(name, SEARCH_SWITCHES[name][1 if default else 0])
-    cands = [Trajectory(vx=3.0, vy=1.0), Trajectory(vx=0.0, vy=0.0)]
-    if default:
+    ref, got = _pair(stack)
+    for s in (ref, got):
+        s.set_min_obs(5)
+        s.set_results_per_pixel(2)
+        s.enable_gpu_sigmag_filter([0.25, 0.75], 0.7413, 3.0)
+        s.search_all(candidates, True)
+    _assert_rows_match(ref.results, got.results, got)
+    best = got.get_results(0, 1)[0]
+    assert (best.x, best.y) == (OBJ["x"], OBJ["y"])
+    if name == "KB_SNAP_ROW_ERROR" and not default:
+        q = 2 * 0.5 / float(stack.zeroed_times[-1])
+        vy = got.results.get_arrays()["vy"].astype(np.float64)
+        assert np.allclose(vy, np.round(vy / q) * q, atol=1e-5)
+
+
+def test_sigmag_refinement_flag_on_a_rounding(monkeypatch):
+    """Where the clipping keeps every sample, a pixel's kept clipped lh and
+    its pool's unclipped floor are the same number, and the reference's
+    boundary-inversion flag (kept floor < pool floor) turns on a rounding.
+    On this stack (8 offset classes among 30 candidates, so every pool
+    ties) the port's K2 rounds the pool 1 ulp above its host re-score and
+    refines pixel (6, 1) to the exact mode's answer (lh 3.0862); the JAX
+    package, with the same flag on its own roundings, returns either that
+    or its unrefined pool (lh 2.8545; XLA on the CPU here rounds the two
+    equal). ROADMAP Queue 3."""
+    _, st = _small_search()
+    cands = list(KBMODV1Search(5, 1.0, 4.0, 6, -0.2, 0.6))
+
+    def rows_at(search_cls, **kw):
+        s = search_cls(st.sci, st.var, st.psfs, st.zeroed_times, -1, **kw)
+        s.set_min_obs(3)
+        s.set_results_per_pixel(2)
+        s.enable_gpu_sigmag_filter([0.25, 0.75], 0.7413, 1.0)
         s.search_all(cands, True)
-        assert s.get_results(0, 1)[0].x == 9
-    else:
-        with pytest.raises(NotImplementedError, match=name):
-            s.search_all(cands, True)
+        a = s.results.get_arrays()
+        at = (a["x"] == 6) & (a["y"] == 1)
+        return sorted(zip(a["vx"][at].tolist(), a["lh"][at].tolist()))
+
+    port, ref = rows_at(StackSearch, device="cpu"), rows_at(JStackSearch)
+    monkeypatch.setenv("KB_SIGMAG_AUTO", "0")
+    unrefined = rows_at(JStackSearch)
+    monkeypatch.setenv("KB_SIGMAG_MODE", "exact")
+    exact = rows_at(JStackSearch)
+    assert [vx for vx, _ in port] == [vx for vx, _ in exact] != [vx for vx, _ in unrefined]
+    np.testing.assert_allclose([lh for _, lh in port], [lh for _, lh in exact], rtol=1e-5)
+    assert max(lh for _, lh in unrefined) < min(lh for _, lh in exact) - 0.2
+    assert [vx for vx, _ in ref] in ([vx for vx, _ in exact], [vx for vx, _ in unrefined])
 
 
 @pytest.mark.parametrize("default", [False, True], ids=["set", "default"])

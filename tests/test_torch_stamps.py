@@ -144,8 +144,8 @@ def test_append_all_stamps_and_empty_results():
     empty = TResults()
     t_append_coadds(empty, got_stack, ["sum"], 3, device="cpu")
     assert empty["coadd_sum"].shape == (0, 7, 7)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        filter_stamps_by_cnn(got, "model.pt")
+    with pytest.raises(ValueError, match="coadd type"):  # no coadd_mean column to vet
+        filter_stamps_by_cnn(got, "model.pt", device="cpu")
 
 
 def test_host_stamp_helpers_match():
