@@ -54,10 +54,32 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``filter_stamps_by_cnn`` alone on 4,096 random 21 x 21 stamps (resnet18)
    and 1,024 of 99 x 99 (resnet50), stamps per second, logits against the
    CPU's;
-10. K6's own path, the micro-benchmark script
+10. ckpt: a child process (this script with ``--ckpt-child``) runs the
+   uint8 full-frame search (K5) checkpointed in 8 tiles of 256 rows and is
+   killed with SIGKILL once two tiles are on disk; this process resumes
+   it: rows bit-equal to the un-tiled search, the finished tiles loaded
+   (no hidden tmp file) and only the rest computed; one code of plane 3
+   (which the JAX package's 8-plane sample skips) changed must discard
+   the directory; the float full frame (K2) in 8 tiles equals its
+   un-tiled rows; the tiled and un-tiled walls, the fingerprint's time and
+   the tiles loaded are printed;
+11. sharded: a mesh of two shards on cuda:0 (every card when there are
+   more), through ``StackSearch.search_all`` with KB_SHARDED=1: uint8
+   candidates mode (K5 a shard; rows and maps equal to one device), float
+   pixels mode (K2; rows equal), float time mode on a 32-row band over all
+   1,681 candidates (plain PyTorch partial sums over candidate chunks, no
+   kernel; the same rows, lh within the float64 bound), sigma-G on the
+   256-row band (K2; rows equal); the u8 candidates and time runs' memory
+   peaks within ``search_memory_budget``; then
+   ``sharded_sigmag_exact_topk`` on a 16-row band and
+   ``sharded_psi_phi_build`` (K1 a shard), each equal to one device; each
+   wall beside the one-device wall;
+12. profile: one P1 pipeline run with KB_PROFILE_DIR, whose Chrome trace
+   must name the K1 and K2 launches;
+13. K6's own path, the micro-benchmark script
    (``kbmod_tpu_torch.scripts.exactrow_microbench``), driven with the
    counts at 0 and read after;
-11. each kernel's time at the main path's shapes beside its twin's, its
+14. each kernel's time at the main path's shapes beside its twin's, its
    bound and (K1) cuDNN's grouped convolution, as one JSON line (K2 and K5
    at both of their main-path shapes: the full frame at K = 8 and the
    sigma-G band at K = 32, each held against the twin); K2 and K3 with
@@ -66,7 +88,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``midscale_kernel`` shapes (T = 64, 2048 x 2048, C = 33,153, K = 8);
    and K6's three modes at the script's defaults and at NG = 3,015;
    launches summed over every path above;
-12. as the last line, {"ok": true, "device": {...}}.
+15. as the last line, {"ok": true, "device": {...}}.
 
 Imports nothing of the JAX package.
 """
@@ -111,6 +133,13 @@ VETTING_STAMPS = (("resnet18", 4096, 10), ("resnet50", 1024, 49))
 K6_MIDSCALE_NG = 3015
 # em of the JAX package's midscale_kernel benchmark (bench.py:176-178).
 MIDSCALE_EM = np.array([-6.0, 12.0 / 254, 0.1, 4.0 / 254], dtype=np.float32)
+# The ckpt phase: starting-pixel rows a tile (8 tiles of the main stack),
+# the child's pause after each tile and its time limit, and the columns
+# that must equal the un-tiled search (search/checkpoint.py _RESULT_KEYS).
+CKPT_TILE_ROWS = 256
+CKPT_CHILD_PAUSE_S = 0.5
+CKPT_CHILD_TIMEOUT_S = 300
+CKPT_RESULT_KEYS = ("x", "y", "vx", "vy", "lh", "flux", "obs_count")
 
 
 def log(msg):
@@ -740,6 +769,9 @@ def quantized_path(stack, obj, cands, obj_c, band=256):
         s.set_min_lh(10.0)
         s.search_all(cands, True)
         searches["u8"] = s
+        # The un-tiled, one-device rows the ckpt and sharded phases equal.
+        searches["u8_rows"] = {k: np.array(v) for k, v in s.results.get_arrays().items()}
+        searches["u8_t"] = dict(s.timings)
         return s
 
     def u8_band_sigmag():
@@ -1149,6 +1181,442 @@ def vetting_path(stack, obj, card, dev, generator=None, timed=VETTING_STAMPS):
 
 
 # ----------------------------------------------------------------------
+# Checkpoint/resume, the sharded search and the profiler
+# ----------------------------------------------------------------------
+
+def _configure_full(s, T, H):
+    """The main path's full-frame search settings on a StackSearch."""
+    s.set_start_bounds_y(0, H)
+    s.disable_gpu_sigmag_filter()
+    s.set_results_per_pixel(8)
+    s.set_min_obs(T // 2)
+    s.set_min_lh(10.0)
+
+
+def _rows_equal(tag, got, want):
+    """Every column of the result rows equal, in the same order."""
+    for k in CKPT_RESULT_KEYS:
+        if not np.array_equal(got[k], want[k]):
+            raise AssertionError(f"{tag}: column {k} differs from the one-device, un-tiled search")
+
+
+def ckpt_child(directory, seed):
+    """The half of the ckpt phase that is killed: the uint8 full-frame
+    search of the main stack, checkpointed in CKPT_TILE_ROWS-row tiles into
+    ``directory``, each tile followed by a pause of CKPT_CHILD_PAUSE_S so
+    that the kill lands mid-search. Never meant to finish."""
+    from kbmod_tpu_torch.ops import search as ops
+    from kbmod_tpu_torch.search import StackSearch
+
+    stack, _, cands, _ = make_main_stack(seed)
+    T, H = len(stack.sci), stack.height
+    s = StackSearch(stack.sci, stack.var, stack.psfs, stack.zeroed_times, 1)
+    _configure_full(s, T, H)
+    s.enable_search_checkpointing(directory, tile_rows=CKPT_TILE_ROWS)
+    search = ops.core_search
+
+    def paced(*args, **kw):
+        out = search(*args, **kw)
+        time.sleep(CKPT_CHILD_PAUSE_S)
+        return out
+
+    ops.core_search = paced
+    log("ckpt child: searching")
+    s.search_all(cands, True)
+    log("ckpt child: finished every tile")
+    return 0
+
+
+def ckpt_path(search, searches, stack, cands, full_rows, full_t, seed, card):
+    """Checkpoint/resume on the main stack. A child process (this script
+    with --ckpt-child) runs the uint8 full-frame search (K5) in 8 tiles of
+    256 rows and is killed with SIGKILL once two tiles are on disk; this
+    process resumes it: the rows must equal the un-tiled search's, the
+    finished tiles must be loaded (no hidden tmp file) and only the rest
+    computed. Then one code of plane 3, which the JAX package's 8-plane
+    sample skips, is changed: the directory must be discarded. Last, the
+    float full frame (K2) in 8 tiles, equal to its un-tiled rows. Returns
+    the launches of the driven searches and the numbers printed."""
+    import signal
+    import tempfile
+
+    from kbmod_tpu_torch.search import StackSearch
+
+    T, H, W = len(stack.sci), stack.height, stack.width
+    total, out = {}, {}
+    # A search set up exactly as the child's (the quantized path's has
+    # carried other settings, which the fingerprint covers).
+    u8 = StackSearch(stack.sci, stack.var, stack.psfs, stack.zeroed_times, 1)
+    _configure_full(u8, T, H)
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "u8")
+        child_log = os.path.join(tmp, "child.log")
+        t0 = time.perf_counter()
+        with open(child_log, "w") as f:
+            child = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--ckpt-child", ck, "--seed",
+                                      str(seed)], stdout=f, stderr=subprocess.STDOUT)
+        deadline = time.monotonic() + CKPT_CHILD_TIMEOUT_S
+        try:
+            while True:
+                names = os.listdir(ck) if os.path.isdir(ck) else []
+                if sum(n.startswith("tile_") and n.endswith(".npz") for n in names) >= 2:
+                    child.send_signal(signal.SIGKILL)
+                    break
+                if child.poll() is not None or time.monotonic() > deadline:
+                    with open(child_log) as f:
+                        tail = f.read()[-2000:]
+                    raise AssertionError(f"ckpt child ended ({child.returncode}) or timed out before two tiles:\n{tail}")
+                time.sleep(0.01)
+        finally:
+            if child.poll() is None:
+                child.kill()
+            child.wait()
+        names = sorted(os.listdir(ck))
+        done = [n for n in names if n.startswith("tile_") and n.endswith(".npz")]
+        hidden = [n for n in names if n.startswith(".")]
+        log(f"ckpt: child killed (signal {-child.returncode}) after {time.perf_counter() - t0:.1f} s with "
+            f"{len(done)} of {H // CKPT_TILE_ROWS} tiles on disk {done}, hidden {hidden}")
+        if child.returncode != -signal.SIGKILL:
+            raise AssertionError(f"ckpt child was not killed by SIGKILL: exit {child.returncode}")
+
+        u8.enable_search_checkpointing(ck, tile_rows=CKPT_TILE_ROWS)
+        loaded = []
+        real_load = np.load
+
+        def spy(path, *args, **kw):
+            loaded.append(os.path.basename(path))
+            return real_load(path, *args, **kw)
+
+        np.load = spy
+        try:
+            _, launches, wall = drive("ckpt: u8 full frame resumed after SIGKILL (K5)", ("search_grouped",),
+                                      lambda: u8.search_all(cands, True))
+        finally:
+            np.load = real_load
+        _add(total, launches)
+        _rows_equal("ckpt resumed u8 full frame", u8.results.get_arrays(), searches["u8_rows"])
+        t = dict(u8.timings)
+        if t["tiles_loaded"] != len(done) or sorted(loaded) != done:
+            raise AssertionError(f"ckpt: loaded {sorted(loaded)} ({t['tiles_loaded']}), on disk {done}")
+        if launches["search_grouped"] != H // CKPT_TILE_ROWS - len(done):
+            raise AssertionError(f"ckpt: K5 launched {launches['search_grouped']} times for "
+                                 f"{H // CKPT_TILE_ROWS - len(done)} tiles left")
+        out["resume"] = dict(wall=wall, **t)
+        log(f"ckpt: resumed, {t['tiles_loaded']} tiles loaded, {H // CKPT_TILE_ROWS - len(done)} computed; rows "
+            f"bit-equal to the un-tiled search; wall {wall:.1f} ms, fingerprint {t['fingerprint_ms']:.1f} ms, "
+            f"search {t['search_ms']:.1f} ms, assembly {t['assemble_ms']:.1f} ms; {card}")
+
+        # One code of a plane the JAX package's sample (every 8th) skips.
+        pairs = u8._eval_planes()[0].pairs
+        py, px = H // 2 - 24, W // 2 - 24
+        old = int(pairs[3, py, px, 0])
+        pairs[3, py, px, 0] = old % 255 + 1
+        try:
+            _, launches, wall = drive("ckpt: u8 full frame, one code of plane 3 changed (K5)", ("search_grouped",),
+                                      lambda: u8.search_all(cands, True))
+        finally:
+            pairs[3, py, px, 0] = old
+        _add(total, launches)
+        t = dict(u8.timings)
+        if t["tiles_loaded"] != 0 or launches["search_grouped"] != H // CKPT_TILE_ROWS:
+            raise AssertionError(f"ckpt: a changed plane-3 code did not discard the directory: {t}, {launches}")
+        del u8, pairs
+        untiled = searches["u8_t"]
+        out["u8"] = dict(tiled_ms=wall, search_ms=t["search_ms"], assemble_ms=t["assemble_ms"],
+                         fingerprint_ms=t["fingerprint_ms"], untiled_search_ms=untiled["search_ms"],
+                         untiled_assemble_ms=untiled["assemble_ms"])
+        log(f"ckpt: the changed plane-3 code discarded the directory (0 tiles loaded, 8 computed); u8 full frame "
+            f"in 8 tiles: search {t['search_ms']:.1f} ms + assembly {t['assemble_ms']:.1f} ms + fingerprint "
+            f"{t['fingerprint_ms']:.1f} ms (drive wall {wall:.1f} ms) against un-tiled {untiled['search_ms']:.1f} + "
+            f"{untiled['assemble_ms']:.1f} ms; {card}")
+
+        # The float full frame (K2) in 8 tiles.
+        _configure_full(search, T, H)
+        search.enable_search_checkpointing(os.path.join(tmp, "float"), tile_rows=CKPT_TILE_ROWS)
+        _, launches, wall = drive("ckpt: float full frame in 8 tiles (K2)", ("search_topk",),
+                                  lambda: search.search_all(cands, True))
+        search.enable_search_checkpointing(None)
+        _add(total, launches)
+        _rows_equal("ckpt float full frame", search.results.get_arrays(), full_rows)
+        t = dict(search.timings)
+        out["float"] = dict(tiled_ms=wall, search_ms=t["search_ms"], assemble_ms=t["assemble_ms"],
+                            fingerprint_ms=t["fingerprint_ms"], untiled_search_ms=full_t["search_ms"],
+                            untiled_assemble_ms=full_t["assemble_ms"])
+        per_tile = (t["search_ms"] + t["assemble_ms"] - full_t["search_ms"] - full_t["assemble_ms"]) / 8
+        log(f"ckpt: float full frame in 8 tiles, rows bit-equal to un-tiled; search {t['search_ms']:.1f} ms + "
+            f"assembly {t['assemble_ms']:.1f} ms + fingerprint {t['fingerprint_ms']:.1f} ms (drive wall "
+            f"{wall:.1f} ms) against un-tiled {full_t['search_ms']:.1f} + {full_t['assemble_ms']:.1f} ms: "
+            f"{per_tile:.1f} ms a tile; {card}")
+    return total, out
+
+
+def _f64_bound_ok(search, rows, T):
+    """Whether each row's lh lies within the ROADMAP Queue 3 float64 bound
+    of its own curves: |lh - lh64| <= (T + 1) u sum|psi| / sqrt(sum phi) +
+    2 u |lh64|. Returns (ok, the largest gap over its bound)."""
+    from kbmod_tpu_torch.search import TrajectoryList
+
+    curves = search.get_all_psi_phi_curves(TrajectoryList({k: np.asarray(v) for k, v in rows.items()}))
+    psi, phi = curves[:, :T].astype(np.float64), curves[:, T:].astype(np.float64)
+    root = np.sqrt(np.maximum(phi.sum(axis=1), 1e-300))
+    lh64 = psi.sum(axis=1) / root
+    u = 2.0 ** -24
+    bound = (T + 1) * u * np.abs(psi).sum(axis=1) / root + 2 * u * np.abs(lh64)
+    ratio = np.abs(np.asarray(rows["lh"], np.float64) - lh64) / bound
+    return bool(np.all(ratio <= 1.0)), float(ratio.max()) if len(ratio) else 0.0
+
+
+def sharded_path(search, searches, stack, obj, cands, full_rows, card, dev, band=256):
+    """The sharded search on the main stack over a mesh of two shards on
+    cuda:0 (every card when there are more), each search driven through
+    ``StackSearch.search_all`` with KB_SHARDED=1 and the counts at 0:
+    uint8 candidates mode (K5 a shard; rows and maps equal to one device),
+    float pixels mode (K2 a shard; rows equal), float time mode on a
+    32-row band over all 1,681 candidates (plain PyTorch partial sums over
+    candidate chunks, no kernel; the same rows, lh within the float64
+    bound), sigma-G over-provisioned on the 256-row band (candidates, K2;
+    rows equal); the u8 candidates and time runs' memory peaks held to
+    ``run_search.search_memory_budget`` for the same search; then alone:
+    ``sharded_sigmag_exact_topk`` on a 16-row band (equal to one device) and
+    ``sharded_psi_phi_build`` (K1 a shard; equal to a one-shard build).
+    Returns the launches and {mode: (sharded ms, one-device ms)}."""
+    import kbmod_tpu_torch.parallel.sharded as sharded
+    from kbmod_tpu_torch.configuration import SearchConfiguration
+    from kbmod_tpu_torch.ops import search as ops
+    from kbmod_tpu_torch.ops.search import trajectory_offsets
+    from kbmod_tpu_torch.run_search import search_memory_budget
+
+    T, H, W = len(stack.sci), stack.height, stack.width
+    n = torch.cuda.device_count()
+    devices = [dev] * 2 if n == 1 else [torch.device("cuda", i) for i in range(n)]
+    mesh = sharded.build_mesh(devices=devices)
+    shards = len(devices)
+    total, walls = {}, {}
+    vxs = np.array([c.vx for c in cands], np.float32)
+    vys = np.array([c.vy for c in cands], np.float32)
+    dxs, dys = trajectory_offsets(vxs, vys, stack.zeroed_times)
+
+    def one_device(s, grid=cands):
+        t0 = time.perf_counter()
+        with switched(KB_SHARDED="0"):
+            s.search_all(grid, True)
+        torch.cuda.synchronize()
+        return {k: np.array(v) for k, v in s.results.get_arrays().items()}, (time.perf_counter() - t0) * 1e3
+
+    peaks = {}
+
+    def measured(tag, fn):
+        """fn, its device memory peak above what was allocated before kept
+        under peaks[tag]."""
+        def run():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            out = fn()
+            torch.cuda.synchronize()
+            peaks[tag] = torch.cuda.max_memory_allocated() - base
+            return out
+        return run
+
+    def within_budget(tag, num_bytes, y0, y1, mode):
+        """The search's peak against the budget of a configuration that
+        runs the same search (K 8, the rows [y0, y1), the whole grid)."""
+        config = SearchConfiguration(dict(encode_num_bytes=num_bytes, results_per_pixel=8, num_obs=T // 2,
+                                          lh_level=10.0, y_pixel_bounds=[y0, y1], save_config=False))
+        with switched(KB_SHARDED="1", KB_SHARD_MODE=mode):
+            budget = search_memory_budget(config, stack, len(cands), dev)
+        log(f"sharded {tag} memory: peak {peaks[tag]} bytes, budget {budget['total']} bytes "
+            f"(shards term {budget['shards']}); {card}")
+        if peaks[tag] > budget["total"]:
+            raise AssertionError(f"sharded {tag}: the peak {peaks[tag]} exceeds the budget {budget['total']}")
+
+    real_build = sharded.build_mesh
+    sharded.build_mesh = lambda: mesh
+    try:
+        # uint8 full frame, candidates mode: K5 a shard with its own plan.
+        u8 = searches["u8"]
+        _configure_full(u8, T, H)
+        with switched(KB_SHARDED="1", KB_SHARD_MODE="candidates"):
+            _, launches, wall = drive(f"sharded u8 full frame, candidates mode, {mesh} (K5 a shard)",
+                                      ("search_grouped",), measured("u8 candidates", lambda: u8.search_all(cands, True)))
+        _add(total, launches)
+        within_budget("u8 candidates", 1, 0, H, "candidates")
+        if launches["search_grouped"] != shards:
+            raise AssertionError(f"sharded u8: K5 launched {launches['search_grouped']} times for {shards} shards")
+        _rows_equal("sharded u8 candidates", u8.results.get_arrays(), searches["u8_rows"])
+        u8_t = searches["u8_t"]
+        walls["u8 candidates (K5)"] = (wall, u8_t["search_ms"] + u8_t["assemble_ms"])
+        planes = u8._eval_planes()[0]
+        kw = dict(x_min=0, x_max=W, y_min=0, y_max=H, k_results=8, gate_min_obs=True, gate_min_lh=True)
+        one = ops._local_topk(planes, None, None, dxs, dys, sigmag_mode="", min_obs=float(T // 2), min_lh=10.0,
+                              sgl_L=0.25, sgl_H=0.75, sigmag_coeff=0.7413, has_masked=False, **kw)
+        two = sharded.sharded_search_topk(planes, None, None, dxs, dys, mesh, min_obs=float(T // 2), min_lh=10.0,
+                                          **kw)
+        if not (torch.equal(one[0], two[0]) and torch.equal(one[1], two[1])):
+            raise AssertionError("sharded u8: the merged K5 maps differ from the one-device maps")
+        del one, two
+        log(f"sharded u8 candidates: rows and (8, {H}, {W}) maps bit-equal to one device; wall {wall:.1f} ms "
+            f"against one device's search + assembly {walls['u8 candidates (K5)'][1]:.1f} ms; {card}")
+
+        # The float full frame, pixels mode: K2 a shard.
+        _configure_full(search, T, H)
+        with switched(KB_SHARDED="1", KB_SHARD_MODE="pixels"):
+            _, launches, wall = drive("sharded float full frame, pixels mode (K2 a shard)", ("search_topk",),
+                                      lambda: search.search_all(cands, True))
+        _add(total, launches)
+        if launches["search_topk"] != shards:
+            raise AssertionError(f"sharded float pixels: K2 launched {launches['search_topk']} times")
+        _rows_equal("sharded float pixels", search.results.get_arrays(), full_rows)
+        _, ms_one = one_device(search)
+        walls["float pixels (K2)"] = (wall, ms_one)
+        log(f"sharded float pixels: rows bit-equal to one device; wall {wall:.1f} ms against {ms_one:.1f} ms; {card}")
+
+        # Time mode on a 32-row band over the whole grid: plain PyTorch, no
+        # kernel and no twin.
+        y0 = obj.y - 16
+        search.set_start_bounds_y(y0, y0 + 32)
+        rows_one, ms_one = one_device(search)
+        reset_counts()
+        t0 = time.perf_counter()
+        with switched(KB_SHARDED="1", KB_SHARD_MODE="time"):
+            measured("float time", lambda: search.search_all(cands, True))()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        launches, twin_calls = read_counts()
+        log(f"sharded float time mode, band y=[{y0}, {y0 + 32}), {len(cands)} candidates: launches {launches}, "
+            f"twin calls {twin_calls}, wall {wall:.1f} ms")
+        if max(launches.values()) != 0 or max(twin_calls.values()) != 0:
+            raise AssertionError(f"sharded time mode: a kernel or a twin ran: {launches}, {twin_calls}")
+        within_budget("float time", -1, y0, y0 + 32, "time")
+        rows = {k: np.array(v) for k, v in search.results.get_arrays().items()}
+        key = ("x", "y", "vx", "vy", "obs_count")
+        if sorted(zip(*(rows[k].tolist() for k in key))) != sorted(zip(*(rows_one[k].tolist() for k in key))):
+            raise AssertionError("sharded time mode: the rows differ from the one-device search's")
+        ok_t, worst_t = _f64_bound_ok(search, rows, T)
+        ok_1, worst_1 = _f64_bound_ok(search, rows_one, T)
+        if not (ok_t and ok_1):
+            raise AssertionError(f"sharded time mode: lh outside the float64 bound ({worst_t}, one device {worst_1})")
+        _check_best("sharded time mode", search.get_results(0, 1)[0], obj, T // 2)
+        walls[f"float time, 32 rows, {len(cands)} candidates (plain)"] = (wall, ms_one)
+        log(f"sharded float time mode: {len(rows['x'])} rows, the one-device rows; lh within the float64 bound "
+            f"(largest gap {worst_t:.3f} of it; one device {worst_1:.3f}); max |lh diff| "
+            f"{float(np.abs(np.sort(rows['lh']) - np.sort(rows_one['lh'])).max()):.3g}; wall {wall:.1f} ms against "
+            f"K2's {ms_one:.1f} ms; {card}")
+
+        # sigma-G, over-provisioned pool, on the 256-row band: candidates, K2.
+        y0 = obj.y - band // 2
+        search.set_start_bounds_y(y0, y0 + band)
+        search.enable_gpu_sigmag_filter([0.25, 0.75], 0.7413, 10.0)
+        rows_one, ms_one = one_device(search)
+        with switched(KB_SHARDED="1", KB_SHARD_MODE="candidates"):
+            _, launches, wall = drive(f"sharded float sigma-G band y=[{y0}, {y0 + band}), candidates (K2 a shard)",
+                                      ("search_topk",), lambda: search.search_all(cands, True))
+        _add(total, launches)
+        _rows_equal("sharded sigma-G band", search.results.get_arrays(), rows_one)
+        _check_best("sharded sigma-G band", search.get_results(0, 1)[0], obj, T // 2)
+        walls["float sigma-G band (K2)"] = (wall, ms_one)
+        log(f"sharded sigma-G band: rows bit-equal to one device; wall {wall:.1f} ms against {ms_one:.1f} ms; {card}")
+        search.disable_gpu_sigmag_filter()
+    finally:
+        sharded.build_mesh = real_build
+
+    # The exact sigma-G search over candidates, 16 rows.
+    psi, phi, valid = search._eval_planes()
+    y0 = obj.y - 8
+    ex = dict(x_min=0, x_max=W, y_min=y0, y_max=y0 + 16, k_results=8, sgl_L=0.25, sgl_H=0.75)
+    dev = psi.device
+    times = {}
+    t0 = time.perf_counter()
+    one = ops.search_topk_sigmag_exact(psi, phi, valid, torch.as_tensor(dxs, device=dev),
+                                       torch.as_tensor(dys, device=dev), T // 2, 10.0, 0.7413, **ex)
+    torch.cuda.synchronize()
+    times["one"] = (time.perf_counter() - t0) * 1e3
+    reset_counts()
+    t0 = time.perf_counter()
+    two = sharded.sharded_sigmag_exact_topk(psi, phi, valid, dxs, dys, mesh, min_obs=T // 2, min_lh=10.0,
+                                            sigmag_coeff=0.7413, **ex)
+    torch.cuda.synchronize()
+    times["two"] = (time.perf_counter() - t0) * 1e3
+    launches, twin_calls = read_counts()
+    if max(launches.values()) != 0 or max(twin_calls.values()) != 0:
+        raise AssertionError(f"sharded exact sigma-G ran a kernel or twin: {launches}, {twin_calls}")
+    if not (torch.equal(one[0], two[0]) and torch.equal(one[1], two[1])):
+        raise AssertionError("sharded exact sigma-G: the maps differ from the one-device exact search")
+    walls["exact sigma-G, 16 rows (plain)"] = (times["two"], times["one"])
+    log(f"sharded exact sigma-G, 16 rows: maps equal to one device; {times['two']:.1f} ms against "
+        f"{times['one']:.1f} ms; {card}")
+    del one, two
+
+    # The psi/phi build, the time axis split over the shards: K1 a shard.
+    sci, var = stack.stacked_sci(), stack.stacked_var()
+    psf = np.asarray(stack.psfs[0], np.float32)
+    reset_counts()
+    t0 = time.perf_counter()
+    two = sharded.sharded_psi_phi_build(sci, var, psf, mesh)
+    torch.cuda.synchronize()
+    ms_two = (time.perf_counter() - t0) * 1e3
+    launches, twin_calls = read_counts()
+    log(f"sharded psi/phi build: launches {launches}, twin calls {twin_calls}, wall {ms_two:.1f} ms")
+    if launches["psi_phi_conv"] != shards or max(twin_calls.values()) != 0:
+        raise AssertionError(f"sharded build: not K1 once a shard: {launches}, {twin_calls}")
+    _add(total, launches)
+    t0 = time.perf_counter()
+    one = sharded.sharded_psi_phi_build(sci, var, psf, sharded.build_mesh(devices=devices[:1]))
+    torch.cuda.synchronize()
+    ms_one = (time.perf_counter() - t0) * 1e3
+    if not all(torch.equal(a, b) for a, b in zip(one, two)):
+        raise AssertionError("sharded build: psi, phi or the validity plane differ from the one-shard build")
+    walls["psi/phi build (K1)"] = (ms_two, ms_one)
+    log(f"sharded psi/phi build ({T} x {H} x {W}): psi, phi and validity bit-equal to the one-shard build "
+        f"({int(one[2].numel() - one[2].sum())} invalid); {ms_two:.1f} ms against {ms_one:.1f} ms (host copies "
+        f"included); {card}")
+    del one, two
+    log("sharded walls (ms, sharded against one device): "
+        + "; ".join(f"{k}: {a:.1f} / {b:.1f}" for k, (a, b) in walls.items()) + f"; {shards} shards; {card}")
+    return total, walls
+
+
+def profile_path(stack, obj, card):
+    """One P1 pipeline run with KB_PROFILE_DIR set, driven with the counts at
+    0 (K1, K2): one Chrome trace must be written, naming the K1 and K2
+    launches (their ``record_function`` labels); the device kernels it
+    holds are counted. Returns the launches."""
+    import glob
+    import tempfile
+
+    from kbmod_tpu_torch.configuration import SearchConfiguration
+    from kbmod_tpu_torch.run_search import SearchRunner
+
+    with tempfile.TemporaryDirectory() as tmp:
+        config = SearchConfiguration(dict(generator_config=PIPELINE_GENERATOR, save_config=False))
+        with switched(KB_PROFILE_DIR=tmp):
+            keep, launches, wall = drive("profile: pipeline P1 float with KB_PROFILE_DIR (K1, K2)",
+                                         ("psi_phi_conv", "search_topk"),
+                                         lambda: SearchRunner().run_search(config, stack))
+        if (keep["x"][0], keep["y"][0]) != (obj.x, obj.y):
+            raise AssertionError("profile: row 0 of the profiled P1 is not the object")
+        traces = glob.glob(os.path.join(tmp, "kbmod_trace_*.json"))
+        if len(traces) != 1:
+            raise AssertionError(f"profile: {len(traces)} trace files written, not one")
+        size = os.path.getsize(traces[0])
+        with open(traces[0]) as f:
+            events = json.load(f)["traceEvents"]
+    names = [str(e.get("name", "")) for e in events]
+    labels = {k: sum(n == k for n in names) for k in ("kbmod K1 psi_phi_conv", "kbmod K2 search_topk")}
+    kernels = [n for e, n in zip(events, names) if e.get("cat") == "kernel"]
+    device = {"K1": sum("conv_tiled" in n or "conv_generic" in n for n in kernels),
+              "K2": sum("search_topk_kernel" in n for n in kernels)}
+    log(f"profile: trace of {size} bytes, {len(events)} events; launch labels {labels} (launches {launches}); "
+        f"{len(kernels)} device kernel events, of them K1 {device['K1']}, K2 {device['K2']}; profiled P1 wall "
+        f"{wall:.1f} ms; {card}")
+    if min(labels.values()) < 1:
+        raise AssertionError(f"profile: the trace does not name the K1 and K2 launches: {labels}")
+    if min(device.values()) < 1:
+        log("profile: warning: the trace holds no device kernel events for K1 or K2 (CUPTI)")
+    return launches
+
+
+# ----------------------------------------------------------------------
 # Kernel times at the main path's shapes
 # ----------------------------------------------------------------------
 
@@ -1421,11 +1889,15 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--checks-only", action="store_true", help="build and check the kernels, then stop")
     ap.add_argument("--seed", type=int, default=20261016, help="seed of the main path's fake data")
+    ap.add_argument("--ckpt-child", metavar="DIR",
+                    help="run the ckpt phase's checkpointed search into DIR (the ckpt phase starts and kills it)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    if args.ckpt_child:
+        return ckpt_child(args.ckpt_child, args.seed)
     from kbmod_tpu_torch.ops import _build
 
     dev = torch.device("cuda")
@@ -1463,6 +1935,9 @@ def main():
     launches_s = switch_path(search, searches, obj, cands, full_rows, full_t)
     exact_path(search, obj, cands, card)
     vetting = vetting_path(stack, obj, card, dev)
+    launches_c, _ = ckpt_path(search, searches, stack, cands, full_rows, full_t, args.seed, card)
+    launches_sh, _ = sharded_path(search, searches, stack, obj, cands, full_rows, card, dev)
+    launches_prof = profile_path(stack, obj, card)
     launches_k6 = k6_path()
     k1 = time_k1(stack, dev)
     T, H, W = len(stack.sci), *np.asarray(stack.sci[0]).shape
@@ -1505,7 +1980,8 @@ def main():
                     library_ms=r["library_ms"])
 
     launches = {k: launches_f[k] + launches_q[k] + launches_p.get(k, 0) + launches_s.get(k, 0)
-                + vetting["launches"].get(k, 0) for k in launches_f}
+                + vetting["launches"].get(k, 0) + launches_c.get(k, 0) + launches_sh.get(k, 0)
+                + launches_prof.get(k, 0) for k in launches_f}
     entries = [
         entry("psi_phi_conv", "psi_phi_conv.cu", "conv_pallas.py:32", launches["psi_phi_conv"], err_k1, k1),
         entry("search_topk", "search_topk.cu", "search_pallas.py:182", launches["search_topk"],

@@ -98,10 +98,11 @@ def psi_phi_conv(sci, var, psf):
         # The common PSF sizes take their taps as kernel parameters, which
         # needs the table in host memory (a copy of 2 kh kw + 2 floats).
         taps_host = np.ascontiguousarray(taps.cpu().numpy())
-        err = lib.kb_psi_phi_conv(
-            sci.data_ptr(), var.data_ptr(), taps.data_ptr(), taps_host.ctypes.data, N, H, W, kh, kw,
-            psi.data_ptr(), phi.data_ptr(), torch.cuda.current_stream(sci.device).cuda_stream,
-        )
+        with torch.profiler.record_function("kbmod K1 psi_phi_conv"):
+            err = lib.kb_psi_phi_conv(
+                sci.data_ptr(), var.data_ptr(), taps.data_ptr(), taps_host.ctypes.data, N, H, W, kh, kw,
+                psi.data_ptr(), phi.data_ptr(), torch.cuda.current_stream(sci.device).cuda_stream,
+            )
         _build.check(err, "psi_phi_conv")
         psi_phi_conv.launches += 1
     return psi, phi

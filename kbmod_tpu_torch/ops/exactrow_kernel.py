@@ -127,10 +127,11 @@ def exactrow_accumulate(tbl, buf, mode="A", group=8, th=None, check=True):
     tbl = tbl.contiguous()
     buf = buf.contiguous()
     out = torch.zeros((th, W4), dtype=torch.int32, device=buf.device)
-    err = lib.kb_exactrow(
-        tbl.data_ptr(), buf.data_ptr(), NG, T, int(group), th, W4, ord(mode), out.data_ptr(),
-        torch.cuda.current_stream(buf.device).cuda_stream,
-    )
+    with torch.profiler.record_function("kbmod K6 exactrow_accumulate"):
+        err = lib.kb_exactrow(
+            tbl.data_ptr(), buf.data_ptr(), NG, T, int(group), th, W4, ord(mode), out.data_ptr(),
+            torch.cuda.current_stream(buf.device).cuda_stream,
+        )
     _build.check(err, "exactrow_accumulate")
     exactrow_accumulate.launches += 1
     return out

@@ -200,10 +200,11 @@ def _gather_curves(psi, phi, valid, xs, ys, dxs, dys):
     return psi_v, phi_v, ok
 
 
-def _gather_curves_idx(psi, phi, valid, xs, ys, cidx, dxs_tab, dys_tab):
-    """:func:`_gather_curves` with per-row offsets looked up on the device
-    from the (C, T) offset tables by the rows' candidate indices."""
-    return _gather_curves(psi, phi, valid, xs, ys, dxs_tab[cidx], dys_tab[cidx])
+def _gather_curves_idx(psi, phi, valid, xs, ys, cidx, dxs_tab, dys_tab, gather=_gather_curves):
+    """``gather`` (:func:`_gather_curves` or a drop-in with its signature)
+    with per-row offsets looked up on the device from the (C, T) offset
+    tables by the rows' candidate indices."""
+    return gather(psi, phi, valid, xs, ys, dxs_tab[cidx], dys_tab[cidx])
 
 
 def _stats_from_sums(psi_sum, phi_sum, obs):
@@ -245,20 +246,20 @@ def _eval_chunks(xs, ys, chunk, want_curves, T, gather):
     return out
 
 
-def _by_velocity(psi, phi, valid, times, vxs, vys):
+def _by_velocity(psi, phi, valid, times, vxs, vys, gather=_gather_curves):
     """A gather for :func:`_eval_chunks` whose rows carry velocities."""
     dev = psi.device
     vxs = np.asarray(vxs, dtype=np.float32)
     vys = np.asarray(vys, dtype=np.float32)
 
-    def gather(lo, hi, xs, ys):
+    def rows(lo, hi, xs, ys):
         dxs, dys = trajectory_offsets(vxs[lo:hi], vys[lo:hi], times)
-        return _gather_curves(
+        return gather(
             psi, phi, valid, torch.as_tensor(xs, device=dev), torch.as_tensor(ys, device=dev),
             torch.as_tensor(dxs, device=dev), torch.as_tensor(dys, device=dev),
         )
 
-    return gather
+    return rows
 
 
 def evaluate_trajectories(psi, phi, valid, times, xs, ys, vxs, vys, chunk=EVAL_CHUNK):
@@ -267,31 +268,32 @@ def evaluate_trajectories(psi, phi, valid, times, xs, ys, vxs, vys, chunk=EVAL_C
 
     Returns a dict of numpy arrays: psi_sum, phi_sum, obs_count, lh, flux.
     """
-    gather = _by_velocity(psi, phi, valid, times, vxs, vys)
-    return _eval_chunks(xs, ys, chunk, False, len(np.asarray(times)), gather)
+    rows = _by_velocity(psi, phi, valid, times, vxs, vys)
+    return _eval_chunks(xs, ys, chunk, False, len(np.asarray(times)), rows)
 
 
-def _curves_and_stats(psi, phi, valid, times, xs, ys, vxs, vys, chunk=EVAL_CHUNK):
+def _curves_and_stats(psi, phi, valid, times, xs, ys, vxs, vys, chunk=EVAL_CHUNK, gather=_gather_curves):
     """One chunked gather serving both the trajectory statistics and the
     per-time curves + validity that the sigma-G re-scoring needs.
     Returns (psi_curves, phi_curves, ok_curves, stats)."""
-    gather = _by_velocity(psi, phi, valid, times, vxs, vys)
-    return _eval_chunks(xs, ys, chunk, True, len(np.asarray(times)), gather)
+    rows = _by_velocity(psi, phi, valid, times, vxs, vys, gather)
+    return _eval_chunks(xs, ys, chunk, True, len(np.asarray(times)), rows)
 
 
-def _eval_by_index_chunked(psi, phi, valid, xs, ys, cidx, dxs_tab, dys_tab, chunk, want_curves, T):
+def _eval_by_index_chunked(psi, phi, valid, xs, ys, cidx, dxs_tab, dys_tab, chunk, want_curves, T,
+                           gather=_gather_curves):
     """Winner re-scoring by candidate index: the (C, T) offset tables live
     on the device and each chunk looks its rows up there."""
     dev = psi.device
     cidx = torch.as_tensor(np.asarray(cidx, dtype=np.int64), device=dev)
 
-    def gather(lo, hi, xs_c, ys_c):
+    def rows(lo, hi, xs_c, ys_c):
         return _gather_curves_idx(
             psi, phi, valid, torch.as_tensor(xs_c, device=dev), torch.as_tensor(ys_c, device=dev),
-            cidx[lo:hi], dxs_tab, dys_tab,
+            cidx[lo:hi], dxs_tab, dys_tab, gather,
         )
 
-    return _eval_chunks(xs, ys, chunk, want_curves, T, gather)
+    return _eval_chunks(xs, ys, chunk, want_curves, T, rows)
 
 
 def extract_psi_phi_curves(psi, phi, valid, times, xs, ys, vxs, vys):
@@ -561,6 +563,18 @@ def sigmag_filtered_indices(values, sgl0, sgl1, sigmag_coeff, width):
     return np.sort(order[start:end])
 
 
+def merge_topk(top_lh, top_idx, k_results):
+    """Merge stacked per-shard top-K maps (M, SH, SW) into the global top-K
+    (port of the JAX package's ops/search.py:896): a per-pixel stable sort
+    by descending lh, so equal lh keep their shard order. Shards hold
+    ascending candidate ranges and each ranks its ties by ascending index,
+    so the merged maps rank by (lh desc, index asc) and equal a search of
+    every candidate at once slot for slot."""
+    k = int(k_results)
+    lh, order = torch.sort(top_lh, dim=0, descending=True, stable=True)
+    return lh[:k].contiguous(), top_idx.gather(0, order[:k]).contiguous()
+
+
 # ----------------------------------------------------------------------
 # Orchestration: full core search producing a struct-of-arrays result set
 # ----------------------------------------------------------------------
@@ -608,10 +622,41 @@ class _Timer:
         self.t0 = now
 
 
+def exact_inputs(psi, phi, valid, bounds):
+    """The exact sigma-G search's planes, whole (decoded for a quantized
+    stack, as the reference does), and its window and K out of a search's
+    ``bounds``."""
+    planes = psi.decode_full() if isinstance(psi, EncodedPlanes) else (psi, phi, valid)
+    return planes, {k: bounds[k] for k in ("x_min", "x_max", "y_min", "y_max", "k_results")}
+
+
+def _local_topk(psi, phi, valid, dxs, dys, *, sigmag_mode, min_obs, min_lh, sgl_L, sgl_H, sigmag_coeff,
+                has_masked, **bounds):
+    """The one-device top-K maps of :func:`core_search`: the exact sigma-G
+    search, the encoded dispatcher (K3-K5) or K2. dxs, dys are the (C, T)
+    offsets as numpy; ``bounds`` the window, ``k_results`` and the gates."""
+    dev = psi.device
+    if sigmag_mode == "exact":
+        # Every candidate scored and gated by its clipped lh.
+        planes, exact = exact_inputs(psi, phi, valid, bounds)
+        return search_topk_sigmag_exact(
+            *planes, torch.as_tensor(dxs, device=dev), torch.as_tensor(dys, device=dev), min_obs, min_lh,
+            sigmag_coeff, sgl_L=sgl_L, sgl_H=sgl_H, **exact,
+        )
+    if isinstance(psi, EncodedPlanes):
+        # The quantized stack: the codes go straight through the encoded
+        # kernels, which need no validity plane (code 0 is masked).
+        return search_topk_encoded(psi, dxs, dys, float(min_obs), float(min_lh), **bounds)
+    return search_topk(
+        psi, phi, valid, torch.as_tensor(dxs, device=dev), torch.as_tensor(dys, device=dev), float(min_obs),
+        float(min_lh), has_masked=has_masked, **bounds,
+    )
+
+
 def core_search(
     psi, phi, valid, times, vxs, vys, x_min, x_max, y_min, y_max, results_per_pixel,
     min_obs=0, min_lh=0.0, do_sigmag=False, sgl_L=0.25, sgl_H=0.75, sigmag_coeff=-1.0,
-    gate_min_obs=True, gate_min_lh=None, compact_min_lh=None, timings=None,
+    gate_min_obs=True, gate_min_lh=None, compact_min_lh=None, timings=None, topk_fn=None, gather=None,
 ):
     """Run the full top-K search and assemble per-result statistics.
 
@@ -633,7 +678,10 @@ def core_search(
     ``KB_SIGMAG_MODE=exact`` every candidate is scored by its clipped lh
     (:func:`search_topk_sigmag_exact`, on decoded planes for a quantized
     stack). ``timings`` (a dict) receives the stage times "search_ms" and
-    "assemble_ms".
+    "assemble_ms". ``topk_fn`` (with :func:`_local_topk`'s signature) and
+    ``gather`` (:func:`_gather_curves`'s) replace the one-device maps and
+    re-scoring gathers: ``parallel.sharded.sharded_core_search`` passes
+    its mesh-sharded ones.
     """
     dev = psi.device
     timer = _Timer(timings, dev)
@@ -646,41 +694,27 @@ def core_search(
     over = sigmag_pool_factor()
     k_search = min(num_cand, over * k if (do_sigmag and sigmag_mode != "exact") else k)
     k_search = max(k_search, k)
+    topk_fn = topk_fn or _local_topk
+    gather = gather or _gather_curves
 
     dxs, dys = trajectory_offsets(vxs, vys, times)
     escalate = _SigmaGEscalation(do_sigmag, sigmag_mode, over, k, num_cand)
+    has_masked = not isinstance(psi, EncodedPlanes) and sigmag_mode != "exact" and bool(torch.min(valid) == 0)
+    top_lh, top_idx = topk_fn(
+        psi, phi, valid, dxs, dys, sigmag_mode=sigmag_mode, min_obs=min_obs, min_lh=min_lh, sgl_L=sgl_L,
+        sgl_H=sgl_H, sigmag_coeff=sigmag_coeff, has_masked=has_masked,
+        x_min=int(x_min), x_max=int(x_max), y_min=int(y_min), y_max=int(y_max), k_results=int(k_search),
+        gate_min_obs=gate_min_obs, gate_min_lh=bool(gate_min_lh),
+    )
+    timer.lap("search_ms")
     dxs_t = torch.as_tensor(dxs, device=dev)
     dys_t = torch.as_tensor(dys, device=dev)
-    bounds = dict(
-        x_min=int(x_min), x_max=int(x_max), y_min=int(y_min), y_max=int(y_max),
-        k_results=int(k_search), gate_min_obs=gate_min_obs, gate_min_lh=bool(gate_min_lh),
-    )
-    if sigmag_mode == "exact":
-        # Every candidate scored and gated by its clipped lh, on whole
-        # planes (decoded for a quantized stack, as the reference does).
-        planes = psi.decode_full() if isinstance(psi, EncodedPlanes) else (psi, phi, valid)
-        top_lh, top_idx = search_topk_sigmag_exact(
-            *planes, dxs_t, dys_t, min_obs, min_lh, sigmag_coeff,
-            x_min=int(x_min), x_max=int(x_max), y_min=int(y_min), y_max=int(y_max),
-            k_results=int(k_search), sgl_L=sgl_L, sgl_H=sgl_H,
-        )
-        del planes
-    elif isinstance(psi, EncodedPlanes):
-        # The quantized stack: the codes go straight through the encoded
-        # kernels, which need no validity plane (code 0 is masked).
-        top_lh, top_idx = search_topk_encoded(psi, dxs, dys, float(min_obs), float(min_lh), **bounds)
-    else:
-        has_masked = bool(torch.min(valid) == 0)
-        top_lh, top_idx = search_topk(
-            psi, phi, valid, dxs_t, dys_t, float(min_obs), float(min_lh), has_masked=has_masked, **bounds
-        )
-    timer.lap("search_ms")
     refine_fn = None
     if escalate.enabled:
         refine_fn = partial(
             exact_refine_pixels, psi=psi, phi=phi, valid=valid, times=times,
             vxs=vxs, vys=vys, k=k, min_obs=min_obs, min_lh=min_lh,
-            sgl_L=sgl_L, sgl_H=sgl_H, sigmag_coeff=sigmag_coeff,
+            sgl_L=sgl_L, sgl_H=sgl_H, sigmag_coeff=sigmag_coeff, gather=gather,
         )
     results, _ = assemble_core_results(
         top_lh, top_idx, psi, phi, valid, times, vxs, vys,
@@ -688,7 +722,7 @@ def core_search(
         min_obs=min_obs, min_lh=min_lh, do_sigmag=do_sigmag,
         sgl_L=sgl_L, sgl_H=sgl_H, sigmag_coeff=sigmag_coeff,
         warn_on_churn=not escalate.enabled, refine_fn=refine_fn,
-        compact_min_lh=compact_min_lh, offsets=(dxs_t, dys_t),
+        compact_min_lh=compact_min_lh, offsets=(dxs_t, dys_t), gather=gather,
     )
     timer.lap("assemble_ms")
     return results
@@ -698,7 +732,7 @@ def assemble_core_results(
     top_lh, top_idx, psi, phi, valid, times, vxs, vys,
     *, k, k_search, x_min, y_min, SH, SW, min_obs, min_lh,
     do_sigmag=False, sgl_L=0.25, sgl_H=0.75, sigmag_coeff=-1.0,
-    offsets, warn_on_churn=True, refine_fn=None, compact_min_lh=None,
+    offsets, warn_on_churn=True, refine_fn=None, compact_min_lh=None, gather=_gather_curves,
 ):
     """Turn (K', SH, SW) top-K maps into the pixel-major struct-of-arrays
     result set, re-scoring the winners exactly (flux/obs and, with sigma-G,
@@ -708,6 +742,8 @@ def assemble_core_results(
     before assembly; with ``compact_min_lh == min_lh`` the rows that survive
     the caller's ``filter_by_likelihood(min_lh)`` are unchanged. ``offsets``
     are the (dxs, dys) (C, T) offset tables on the planes' device.
+    ``gather`` gathers the winners' curves (:func:`_gather_curves`, or the
+    mesh-sharded drop-in of ``parallel.sharded.make_sharded_evaluators``).
 
     Returns ``(results, pool_tail_frac)``, the second value being the
     sigma-G pool-boundary churn diagnostic (0.0 when no re-rank ran).
@@ -750,7 +786,7 @@ def assemble_core_results(
         f_idx = np.nonzero(filled)[0]
         res = _eval_by_index_chunked(
             psi, phi, valid, xs_all[f_idx], ys_all[f_idx], kidx[f_idx],
-            offsets[0], offsets[1], EVAL_CHUNK, do_sigmag, len(np.asarray(times)),
+            offsets[0], offsets[1], EVAL_CHUNK, do_sigmag, len(np.asarray(times)), gather,
         )
         if do_sigmag:
             psi_v, phi_v, okg, stats = res
@@ -860,14 +896,15 @@ class _SigmaGEscalation:
 
 def exact_refine_pixels(
     results, pix_idx, *, psi, phi, valid, times, vxs, vys, k,
-    min_obs, min_lh, sgl_L, sgl_H, sigmag_coeff, max_chunk=1 << 20,
+    min_obs, min_lh, sgl_L, sgl_H, sigmag_coeff, max_chunk=1 << 20, gather=_gather_curves,
 ):
     """Re-score the flagged pixels against EVERY candidate with the
     reference-exact clipped gating (kernels.cu:184-241 semantics: clip when
     the unclipped result passes min_obs/min_lh, insert by the final lh),
     replacing their K rows in the pixel-major ``results`` dict.
 
-    ``pix_idx`` are flat pixel indices into the (SH*SW, K) row layout.
+    ``pix_idx`` are flat pixel indices into the (SH*SW, K) row layout;
+    ``gather`` gathers the curves, as in :func:`assemble_core_results`.
     """
     vxs = np.asarray(vxs, dtype=np.float32).reshape(-1)
     vys = np.asarray(vys, dtype=np.float32).reshape(-1)
@@ -887,7 +924,7 @@ def exact_refine_pixels(
         ys = np.repeat(ys_pix[lo : lo + pix_chunk], C)
         vx = np.tile(vxs, P)
         vy = np.tile(vys, P)
-        psi_v, phi_v, ok, stats = _curves_and_stats(psi, phi, valid, times, xs, ys, vx, vy)
+        psi_v, phi_v, ok, stats = _curves_and_stats(psi, phi, valid, times, xs, ys, vx, vy, gather=gather)
         clipped_lh, clipped_flux, _, _ = clipped_sigmag_scores(
             psi_v, phi_v, ok, sgl_L, sgl_H, sigmag_coeff
         )

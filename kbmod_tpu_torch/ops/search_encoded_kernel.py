@@ -41,6 +41,8 @@ from kbmod_tpu_torch.ops.psi_phi import _codes_as_int, _f32, interleave_code_pai
 from kbmod_tpu_torch.ops.search_kernel import FLT_MAX, allocate_maps
 from kbmod_tpu_torch.ops.search_plan import GROUP_G, grouped_plan, staging_header_bytes, window_layout_cached
 
+# The kernels' numbers, as the profiler's launch labels name them.
+_KERNEL_TAGS = {"search_encoded": "K3", "search_paired": "K4", "search_grouped": "K5"}
 # uint8 code sums fit a 16-bit field while T * 255 <= 65535.
 PAIRED_MAX_T = 257
 
@@ -313,12 +315,13 @@ def _launch_grouped(lib, entry, lead, prepared, min_obs, min_lh, kw, st, order, 
         np.concatenate([np.append(starts, C), st["lay"].ravel(), st["off"].ravel()]).astype(np.int32), device=dev)
     gstart, lay, off = tables[: NG + 1], tables[NG + 1 : NG + 1 + n_lay], tables[NG + 1 + n_lay :]
     top_lh, top_idx = allocate_maps(K, SH, SW, dev, name)
-    err = getattr(lib, entry)(
-        *lead, pairs.data_ptr(), ox.data_ptr(), oy.data_ptr(), gidx.data_ptr(), cand_ok.data_ptr(),
-        gstart.data_ptr(), lay.data_ptr(), off.data_ptr(), NG, T, H, Wp, SH, SW, K,
-        st["buf_elems"], *em, *_gate_args(min_obs, min_lh, kw), top_lh.data_ptr(), top_idx.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with torch.profiler.record_function(f"kbmod {_KERNEL_TAGS[name]} {name}"):
+        err = getattr(lib, entry)(
+            *lead, pairs.data_ptr(), ox.data_ptr(), oy.data_ptr(), gidx.data_ptr(), cand_ok.data_ptr(),
+            gstart.data_ptr(), lay.data_ptr(), off.data_ptr(), NG, T, H, Wp, SH, SW, K,
+            st["buf_elems"], *em, *_gate_args(min_obs, min_lh, kw), top_lh.data_ptr(), top_idx.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     _build.check(err, name)
     return top_lh, top_idx
 

@@ -254,14 +254,15 @@ def search_topk(
     gstart = torch.as_tensor(np.append(st["starts"], C).astype(np.int32), device=dev)
     lay = torch.as_tensor(st["lay"], device=dev)
     off = torch.as_tensor(st["off"], device=dev)
-    err = lib.kb_search_topk(
-        psi_p.data_ptr(), phi_p.data_ptr(), valid_p.data_ptr(), ox.data_ptr(), oy.data_ptr(),
-        gidx.data_ptr(), cand_ok.data_ptr(), gstart.data_ptr(), lay.data_ptr(), off.data_ptr(),
-        len(st["starts"]), T, H, W, Wp, SH, SW, K, st["buf_elems"],
-        float(min_obs), float(min_lh), int(bool(gate_min_obs)), int(bool(gate_min_lh)),
-        int(bool(has_masked)), top_lh.data_ptr(), top_idx.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with torch.profiler.record_function("kbmod K2 search_topk"):
+        err = lib.kb_search_topk(
+            psi_p.data_ptr(), phi_p.data_ptr(), valid_p.data_ptr(), ox.data_ptr(), oy.data_ptr(),
+            gidx.data_ptr(), cand_ok.data_ptr(), gstart.data_ptr(), lay.data_ptr(), off.data_ptr(),
+            len(st["starts"]), T, H, W, Wp, SH, SW, K, st["buf_elems"],
+            float(min_obs), float(min_lh), int(bool(gate_min_obs)), int(bool(gate_min_lh)),
+            int(bool(has_masked)), top_lh.data_ptr(), top_idx.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     _build.check(err, "search_topk")
     search_topk.launches += 1
     return top_lh, top_idx

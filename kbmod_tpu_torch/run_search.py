@@ -14,15 +14,19 @@ semantics (``search_all(..., on_gpu=False)``), not a choice of device.
 ``cnn_filter`` vets the stamps with the port's ResNet; it needs a weights
 file (``cnn_model``), and the repository ships none.
 
+``KB_SEARCH_CKPT_DIR`` (with ``KB_SEARCH_CKPT_TILE_ROWS``, default 256)
+checkpoints the search per row tile, so that a killed run resumes
+mid-search; ``KB_PROFILE_DIR`` traces the whole run with ``torch.profiler``
+(CPU and CUDA activities) into a Chrome trace file there.
+
 Not ported yet, and refused rather than ignored: WorkUnit inputs and RA/Dec
-output (they need the port's WorkUnit), and the JAX package's search
-checkpointing and profiling switches (``KB_SEARCH_CKPT_DIR``,
-``KB_PROFILE_DIR``), which raise NotImplementedError when set.
+output (they need the port's WorkUnit).
 """
 
 import logging
 import os
 import time
+from contextlib import contextmanager
 
 import numpy as np
 import torch
@@ -43,38 +47,12 @@ from kbmod_tpu_torch.ops.search import (
     EVAL_CHUNK, EXACT_BYTES_PER_SAMPLE, EXACT_CHUNK_SAMPLES, EXACT_ROW_TILE, sigmag_pool_factor,
 )
 from kbmod_tpu_torch.ops.search_kernel import K2_CHUNK
+from kbmod_tpu_torch.parallel.sharded import TIME_CHUNK_ELEMENTS, search_mesh
 from kbmod_tpu_torch.results import Results, write_results_to_files_destructive
 from kbmod_tpu_torch.search import StackSearch, TrajectoryList
 from kbmod_tpu_torch.trajectory_generator import create_trajectory_generator
 
 logger = logging.getLogger("kbmod.run_search")
-
-# The JAX package's pipeline switches the port does not honour yet: the
-# per-row-tile search checkpoints and the profiler trace. Set, they raise.
-PIPELINE_SWITCHES = {
-    "KB_SEARCH_CKPT_DIR": lambda v: not v,
-    "KB_PROFILE_DIR": lambda v: not v,
-}
-
-
-def refuse_switches(switches, where):
-    """Raise NotImplementedError naming the first switch of ``switches``
-    (name -> test of a default value) that the environment sets to a value
-    other than its default: the port would otherwise ignore it and return
-    other results than the JAX package without a word."""
-    for name, is_default in switches.items():
-        value = os.environ.get(name)
-        if value is None:
-            continue
-        try:
-            default = is_default(value)
-        except ValueError:
-            default = False
-        if not default:
-            raise NotImplementedError(
-                f"{where}: the environment switch {name}={value!r} is not ported to kbmod_tpu_torch yet; "
-                f"unset it or give it its default value"
-            )
 
 # Rows of psi/phi curves load_and_filter_results gathers and clips at once.
 RESULTS_BATCH = 100_000
@@ -109,9 +87,8 @@ def _resolve_start_bounds(config, axis, image_extent):
 def configure_kb_search_stack(search, config):
     """Push a SearchConfiguration's filtering, bounds, and in-kernel
     sigma-G settings into a StackSearch (binding surface of the reference's
-    run_search.py:25-72). Raises NotImplementedError when a switch of
-    ``PIPELINE_SWITCHES`` is set."""
-    refuse_switches(PIPELINE_SWITCHES, "configure_kb_search_stack")
+    run_search.py:25-72), and the per-row-tile checkpointing of
+    ``KB_SEARCH_CKPT_DIR`` (tiles of ``KB_SEARCH_CKPT_TILE_ROWS`` rows)."""
     search.set_min_obs(int(config["num_obs"]))
     search.set_min_lh(config["lh_level"])
     search.set_results_per_pixel(config["results_per_pixel"])
@@ -133,7 +110,19 @@ def configure_kb_search_stack(search, config):
         )
     else:
         search.disable_gpu_sigmag_filter()
+
+    # Per-row-tile checkpoints, so that a killed pipeline resumes mid-search
+    # (the JAX package's run_search.py:81-90; env-gated to keep the
+    # configuration's schema the reference's).
+    ckpt_dir = os.environ.get("KB_SEARCH_CKPT_DIR")
+    if ckpt_dir:
+        search.enable_search_checkpointing(ckpt_dir, tile_rows=checkpoint_tile_rows())
     search.clear_results()
+
+
+def checkpoint_tile_rows():
+    """Rows of a checkpoint tile: ``KB_SEARCH_CKPT_TILE_ROWS``, default 256."""
+    return int(os.environ.get("KB_SEARCH_CKPT_TILE_ROWS", "256"))
 
 
 def search_memory_budget(config, stack, num_candidates, device):
@@ -161,7 +150,22 @@ def search_memory_budget(config, stack, num_candidates, device):
     - exact: under ``KB_SIGMAG_MODE=exact``, the decoded planes of a
       quantized stack (9 bytes a pixel and time), one candidate chunk's
       curves over a row tile (EXACT_BYTES_PER_SAMPLE a sample) and the
-      tile's lists with their merge sort (24 bytes a slot).
+      tile's lists with their merge sort (24 bytes a slot);
+    - checkpoint: under ``KB_SEARCH_CKPT_DIR`` the fingerprint's digest of
+      one plane (three int64 words an element of the widest plane set);
+      the maps, expansion, gathers and exact-mode terms then count one
+      tile of ``KB_SEARCH_CKPT_TILE_ROWS`` rows instead of the window;
+    - shards: when ``search_all`` shards (``parallel.sharded.search_mesh``):
+      in candidates mode the K'-deep maps of each shard on this device and,
+      in a group, of each process's merge (8 bytes a slot), and one step of
+      the merge, which takes one part at a time (two parts' maps, their
+      sort with int64 order, the copy and the output: 64 bytes a slot); in
+      pixels mode the shards' rows and their concatenation, and as much
+      again for the processes' (16 bytes a slot each); in time mode one
+      candidate chunk's sums, partial sums, gathers and lh temporaries and
+      its merge (128 bytes a (candidate, pixel) slot of the chunk, at most
+      ``TIME_CHUNK_ELEMENTS`` or one candidate's pixels) and the merge's
+      sort and output (28 bytes a slot).
     """
     T, H, W = stack.num_times, stack.height, stack.width
     C = int(num_candidates)
@@ -173,6 +177,9 @@ def search_memory_budget(config, stack, num_candidates, device):
         return image_extent if bounds is None else bounds[1] - bounds[0]
 
     SH, SW = extent("y", H), extent("x", W)
+    ckpt = bool(os.environ.get("KB_SEARCH_CKPT_DIR"))
+    # The rows whose maps one search holds at a time.
+    SHs = min(SH, checkpoint_tile_rows()) if ckpt else SH
     on_gpu = not config["cpu_only"]
     k = int(config["results_per_pixel"])
     if not on_gpu:
@@ -193,26 +200,41 @@ def search_memory_budget(config, stack, num_candidates, device):
         terms["planes"] = 2 * nb * T * H * _padded_width(W)
         terms["build"] = 48 * live * hw
         terms["padding"] = 0
-        terms["expand"] = 16 * k_search * SH * SW + EXPAND_BAND * EXPAND_BYTES_PER_ELEMENT
+        terms["expand"] = 16 * k_search * SHs * SW + EXPAND_BAND * EXPAND_BYTES_PER_ELEMENT
     else:
         terms["planes"] = 9 * px
         terms["build"] = max(8 * px + 16 * live * hw, 11 * px)
         terms["padding"] = 0 if W % K2_CHUNK == 0 else 9 * T * H * (-(-W // K2_CHUNK) * K2_CHUNK)
         terms["expand"] = 0
-    terms["maps"] = (8 + 17) * k_search * SH * SW
+    terms["maps"] = (8 + 17) * k_search * SHs * SW
     terms["layouts"] = 16 * C * T + 52 * C * T + 16 * C
-    terms["gathers"] = GATHER_BYTES_PER_SAMPLE * min(EVAL_CHUNK, k_search * SH * SW) * T
+    terms["gathers"] = GATHER_BYTES_PER_SAMPLE * min(EVAL_CHUNK, k_search * SHs * SW) * T
     rows = min(RESULTS_BATCH, k_search * SH * SW)
     terms["curves"] = (GATHER_BYTES_PER_SAMPLE + QUANTILE_BYTES_PER_SAMPLE) * rows * T
     terms["exact"] = 0
     if exact:
-        tile = min(EXACT_ROW_TILE, SH) * SW
+        tile = min(EXACT_ROW_TILE, SHs) * SW
         chunk = max(1, EXACT_CHUNK_SAMPLES // (tile * T))
         terms["exact"] = (
             (9 * px if quantized else 0)
             + EXACT_BYTES_PER_SAMPLE * min(chunk, C) * tile * T
             + 24 * (k_search + min(chunk, C)) * tile
         )
+    terms["checkpoint"] = 48 * H * _padded_width(W) if ckpt else 0
+    terms["shards"] = 0
+    mesh = search_mesh(device)
+    if mesh is not None:
+        slots = k_search * SHs * SW
+        mode = os.environ.get("KB_SHARD_MODE", "candidates")
+        if mode == "time":
+            chunk = min(max(C, 1), max(1, TIME_CHUNK_ELEMENTS // (SHs * SW)))
+            terms["shards"] = 128 * chunk * SHs * SW + 28 * slots
+        elif mode == "pixels":
+            terms["shards"] = 16 * (2 if mesh.world_size > 1 else 1) * slots
+        else:
+            here = sum(d == mesh.root for d in mesh.devices)
+            gathered = mesh.world_size if mesh.world_size > 1 else 0
+            terms["shards"] = (8 * (here + gathered) + 64) * slots
     terms["total"] = sum(terms.values())
     return terms
 
@@ -230,6 +252,32 @@ def check_gpu_memory(config, stack, trj_generator=None, device=None):
         f"({ {kk: round(vv / 2**30, 2) for kk, vv in budget.items()} }), free {free / 2**30:.2f} GiB"
     )
     return free > budget["total"]
+
+
+@contextmanager
+def profiled(profile_dir, device):
+    """Trace the block with ``torch.profiler`` (CPU activity, and CUDA on a
+    card) into a Chrome trace ``kbmod_trace_<pid>_<ms>.json`` under
+    ``profile_dir``; no tracing when ``profile_dir`` is empty or None. The
+    trace is stopped and written in a ``finally``, so a failing run still
+    leaves it. The port's kernel wrappers mark their launches
+    ("kbmod K1 psi_phi_conv", ...) with ``record_function``."""
+    if not profile_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(profile_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield
+    finally:
+        prof.stop()
+        path = os.path.join(profile_dir, f"kbmod_trace_{os.getpid()}_{int(time.time() * 1e3)}.json")
+        prof.export_chrome_trace(path)
+        logger.info(f"Profile trace written to {path}.")
 
 
 def stat_gpu_memory_mb(device):
@@ -499,14 +547,17 @@ class SearchRunner:
         """The highest-level entry: search an ImageStackPy with a
         SearchConfiguration (reference run_search.py:396-593) on
         ``device`` (default: the runner's, else CUDA). Raises
-        NotImplementedError for a WorkUnit and for the environment switches
-        the port does not honour yet."""
-        refuse_switches(PIPELINE_SWITCHES, "SearchRunner.run_search")
+        NotImplementedError for a WorkUnit. With ``KB_PROFILE_DIR`` set the
+        whole run is traced (:func:`profiled`)."""
         if workunit is not None:
             raise NotImplementedError("SearchRunner.run_search: WorkUnit inputs wait for the port's WCS and WorkUnit")
         if device is not None:
             self._device = device
         self.device = resolve_device(self._device)
+        with profiled(os.environ.get("KB_PROFILE_DIR"), self.device):
+            return self._run_search(config, stack, trj_generator, extra_meta)
+
+    def _run_search(self, config, stack, trj_generator, extra_meta):
         self.apply_config(config)
         if self.debug:
             logger.debug(f"Device: {self.device}, CUDA available: {torch.cuda.is_available()}")

@@ -1,8 +1,8 @@
 """kbmod_tpu_torch.search: the search-engine API of the port (float path).
 
 The same names as the JAX package's ``search`` module for the parts ported
-so far: StackSearch, Trajectory, TrajectoryList and the psi/phi array and
-evaluation helpers behind them.
+so far: StackSearch, Trajectory, TrajectoryList, the checkpointed core
+search and the psi/phi array and evaluation helpers behind them.
 """
 
 from kbmod_tpu_torch.ops.psi_phi import (
@@ -18,6 +18,7 @@ from kbmod_tpu_torch.ops.search import (
     predict_index,
     sigmag_filtered_indices,
 )
+from kbmod_tpu_torch.search.checkpoint import checkpointed_core_search
 from kbmod_tpu_torch.search.stack_search import StackSearch
 from kbmod_tpu_torch.search.trajectory import Trajectory
 from kbmod_tpu_torch.search.trajectory_list import (
@@ -38,6 +39,7 @@ __all__ = [
     "StackSearch",
     "Trajectory",
     "TrajectoryList",
+    "checkpointed_core_search",
     "evaluate_trajectories",
     "extract_all_trajectory_flux",
     "extract_all_trajectory_lh",

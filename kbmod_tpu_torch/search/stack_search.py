@@ -16,7 +16,14 @@ The JAX package's result-changing switches are honoured: ``KB_SNAP_ROW_ERROR``
 snaps vy onto a row lattice before the search, ``KB_COMPACT_RESULTS=0``
 keeps the dense result layout, and ``KB_SIGMAG_MODE``,
 ``KB_SIGMAG_TOPK_FACTOR`` and ``KB_SIGMAG_AUTO`` reach ``core_search``.
-Checkpointing and multi-device sharding are not ported yet.
+
+``enable_search_checkpointing`` makes ``search_all`` resumable per row tile
+(``search/checkpoint.py``). ``KB_SHARDED`` (``0``, ``1`` or ``auto``, the
+default: more than one card and a search on CUDA) shards the search over
+``parallel.build_mesh()`` (``parallel.sharded.search_mesh``) in
+``KB_SHARD_MODE`` (``candidates``, ``pixels`` or ``time``). Each shard
+takes the one-device route (K2, or the encoded dispatcher's K3-K5), so
+``KB_SEARCH_KERNEL`` stays a route switch the port ignores.
 """
 
 import logging
@@ -29,6 +36,9 @@ import torch
 from kbmod_tpu_torch.device import resolve_device
 from kbmod_tpu_torch.ops import search as search_ops
 from kbmod_tpu_torch.ops.psi_phi import PsiPhiArray, fill_psi_phi_array_from_image_arrays
+from kbmod_tpu_torch.parallel import sharded
+from kbmod_tpu_torch.parallel.sharded import sharded_core_search
+from kbmod_tpu_torch.search.checkpoint import checkpointed_core_search
 from kbmod_tpu_torch.search.trajectory import Trajectory
 from kbmod_tpu_torch.search.trajectory_list import TrajectoryList
 
@@ -57,7 +67,9 @@ class StackSearch:
     """One search over a stack. ``device`` is where the planes live and the
     kernels run: None means CUDA (raising without a card), "cpu" runs the
     kernels' plain twins. ``timings`` holds the last build and search stage
-    times in milliseconds ("psi_phi_ms", "search_ms", "assemble_ms")."""
+    times in milliseconds ("psi_phi_ms", "search_ms", "assemble_ms"; with
+    checkpointing the stages summed over the computed tiles, plus
+    "fingerprint_ms" and the count "tiles_loaded")."""
 
     def __init__(self, sci_imgs, var_imgs, psf_kernels, zeroed_times, num_bytes=-1, device=None):
         num_imgs = len(sci_imgs)
@@ -103,6 +115,8 @@ class StackSearch:
             torch.cuda.synchronize(self.device)
         self.timings["psi_phi_ms"] = (time.perf_counter() - t0) * 1e3
         self._psi_phi_preloaded = False
+        self._checkpoint_dir = None
+        self._checkpoint_tile_rows = 256
         self.results = TrajectoryList(0)
 
     # --- properties (stack_search.cpp:347-353) ---
@@ -146,6 +160,13 @@ class StackSearch:
 
     def set_min_lh(self, new_value):
         self.params.min_lh = new_value
+
+    def enable_search_checkpointing(self, directory, tile_rows=256):
+        """Checkpoint the search per starting-pixel row tile: a killed
+        ``search_all`` resumes from the finished tiles in ``directory``
+        (``search/checkpoint.py``). ``directory=None`` disables it."""
+        self._checkpoint_dir = directory
+        self._checkpoint_tile_rows = int(tile_rows)
 
     def set_results_per_pixel(self, new_value):
         if new_value <= 0:
@@ -322,11 +343,30 @@ class StackSearch:
             # slots then stay empty and the device-side map compaction
             # engages.
             common["gate_min_lh"] = True
-        raw = search_ops.core_search(
-            psi, phi, valid, self._zeroed_times, vxs, vys,
-            p.x_start_min, p.x_start_max, p.y_start_min, p.y_start_max,
-            rpp, timings=self.timings, **common,
-        )
+        search_fn = search_ops.core_search
+        mesh = sharded.search_mesh(self.device)
+        if mesh is not None:
+            # The mesh-sharded search, as a per-tile search with core_search's
+            # signature, so that it composes with checkpointing.
+            common["shard_mode"] = os.environ.get("KB_SHARD_MODE", "candidates")
+            logger.info(f"Sharded search over {mesh}, {common['shard_mode']} mode.")
+
+            def search_fn(psi_, phi_, valid_, times_, vxs_, vys_, x0, x1, y0, y1, rpp_, **kw):
+                return sharded_core_search(
+                    psi_, phi_, valid_, times_, vxs_, vys_, mesh,
+                    x_min=x0, x_max=x1, y_min=y0, y_max=y1, results_per_pixel=rpp_, **kw,
+                )
+
+        args = (psi, phi, valid, self._zeroed_times, vxs, vys,
+                p.x_start_min, p.x_start_max, p.y_start_min, p.y_start_max, rpp)
+        self.timings = {"psi_phi_ms": self.timings.get("psi_phi_ms", 0.0)}
+        if self._checkpoint_dir:
+            raw = checkpointed_core_search(
+                *args, self._checkpoint_dir, tile_rows=self._checkpoint_tile_rows, search_fn=search_fn,
+                timings=self.timings, **common,
+            )
+        else:
+            raw = search_fn(*args, timings=self.timings, **common)
         num_results = len(raw["x"])
         logger.debug(f"Core search returned {num_results} results.")
 

@@ -743,3 +743,101 @@ def test_snapped_u8_search_k5_equals_twin(dev, monkeypatch):
     got = search_encoded_kernel.search_grouped(planes, *args, plan=plan, **kw)
     ref = search_encoded_kernel.search_topk_encoded_shift(planes.psi_codes, planes.phi_codes, *args, planes.em, **kw)
     assert torch.equal(got[1], ref[1]) and torch.equal(got[0], ref[0])
+
+
+def _grid_stack(dev, num_bytes, seed=77):
+    """A 12 x 64 x 64 fake stack with one object, its grid, and a search of
+    it on ``dev``."""
+    from kbmod_tpu_torch.fake_data.fake_data_creator import FakeDataSet, create_fake_times
+    from kbmod_tpu_torch.search import StackSearch, Trajectory
+    from kbmod_tpu_torch.trajectory_generator import KBMODV1Search
+
+    times = create_fake_times(12, 57130.2, 4, 0.02, 1)
+    ds = FakeDataSet(64, 64, times, use_seed=seed, psf_val=1.4, mask_fraction=0.02)
+    ds.insert_object(Trajectory(x=12, y=15, vx=14.0, vy=9.0, flux=400.0))
+    st = ds.stack_py
+    cands = list(KBMODV1Search(9, 10.0, 20.0, 9, 0.3, 0.9))
+    s = StackSearch(st.sci, st.var, st.psfs, st.zeroed_times, num_bytes, device=dev)
+    s.set_min_obs(8)
+    return st, cands, s
+
+
+@pytest.mark.parametrize("shard_mode", ["candidates", "pixels"])
+@pytest.mark.parametrize("num_bytes", [-1, 1], ids=["float-K2", "u8-K5"])
+def test_two_shards_on_one_card_equal_one_device(dev, num_bytes, shard_mode):
+    """Two shards on one card (the planes held once): the merged or
+    concatenated maps equal the one-device search bit for bit, each shard
+    through its kernel (K2, or the dispatcher's K5 with a plan per shard)."""
+    from kbmod_tpu_torch.ops.search import _local_topk
+    from kbmod_tpu_torch.parallel import build_mesh, sharded_search_topk
+
+    st, cands, s = _grid_stack(dev, num_bytes)
+    planes = s._eval_planes()
+    vxs = np.array([c.vx for c in cands], np.float32)
+    vys = np.array([c.vy for c in cands], np.float32)
+    dxs, dys = trajectory_offsets(vxs, vys, st.zeroed_times)
+    kw = dict(x_min=0, x_max=64, y_min=0, y_max=64, k_results=8, gate_min_obs=True, gate_min_lh=False)
+    has_masked = num_bytes == -1 and bool(torch.min(planes[2]) == 0)
+    one = _local_topk(*planes, dxs, dys, sigmag_mode="", min_obs=8.0, min_lh=0.0, sgl_L=0.25, sgl_H=0.75,
+                      sigmag_coeff=1.0, has_masked=has_masked, **kw)
+    kernel = search_kernel.search_topk if num_bytes == -1 else search_encoded_kernel.search_grouped
+    before = kernel.launches
+    got = sharded_search_topk(*planes, dxs, dys, build_mesh(devices=[dev, dev]), min_obs=8.0, min_lh=0.0,
+                              shard_mode=shard_mode, has_masked=has_masked, **kw)
+    assert torch.equal(got[1], one[1]) and torch.equal(got[0], one[0])
+    if num_bytes == -1 or shard_mode == "candidates":
+        assert kernel.launches == before + 2
+
+
+@pytest.mark.parametrize("num_bytes", [-1, 1], ids=["float", "u8"])
+def test_time_mode_on_card_equals_cpu(dev, num_bytes):
+    """Time mode (plain PyTorch partial sums over candidate chunks, two
+    shards) on the card equals the same on the CPU bit for bit."""
+    from kbmod_tpu_torch.parallel import build_mesh, sharded_search_topk
+    from kbmod_tpu_torch.parallel.sharded import _planes_on
+
+    st, cands, s = _grid_stack(dev, num_bytes)
+    planes = s._eval_planes()
+    vxs = np.array([c.vx for c in cands[:20]], np.float32)
+    vys = np.array([c.vy for c in cands[:20]], np.float32)
+    dxs, dys = trajectory_offsets(vxs, vys, st.zeroed_times)
+    kw = dict(x_min=0, x_max=64, y_min=8, y_max=24, k_results=4, min_obs=8.0, shard_mode="time")
+    got = sharded_search_topk(*planes, dxs, dys, build_mesh(devices=[dev, dev]), **kw)
+    cpu = torch.device("cpu")
+    ref = sharded_search_topk(*_planes_on(*planes, cpu), dxs, dys, build_mesh(devices=[cpu, cpu]), **kw)
+    assert torch.equal(got[1].cpu(), ref[1]) and torch.equal(got[0].cpu(), ref[0])
+
+
+def test_sharded_psi_phi_build_on_card(dev):
+    """K1 once a shard over two time slices on one card: equal to one K1
+    launch over the whole stack (NaN masks and every finite value)."""
+    from kbmod_tpu_torch.parallel import build_mesh, sharded_psi_phi_build
+
+    sci, var = _stack(dev, 9, 70, 90, seed=4)
+    psf = PSF.make_gaussian_kernel(1.4)
+    before = conv_kernel.psi_phi_conv.launches
+    psi, phi, valid = sharded_psi_phi_build(sci.cpu().numpy(), var.cpu().numpy(), psf, build_mesh(devices=[dev, dev]))
+    assert conv_kernel.psi_phi_conv.launches == before + 2
+    ref_psi, ref_phi = conv_kernel.psi_phi_conv(sci, var, torch.as_tensor(psf, device=dev))
+    ok = torch.isfinite(ref_psi) & torch.isfinite(ref_phi)
+    assert torch.equal(valid.bool(), ok)
+    assert torch.equal(psi[ok], ref_psi[ok]) and torch.equal(phi[ok], ref_phi[ok])
+
+
+def test_checkpointed_k5_search_on_card(dev, tmp_path):
+    """The uint8 search checkpointed in row tiles on the card: K5 per tile,
+    bit-equal to the un-tiled search; a resume loads every tile and
+    launches nothing."""
+    _, cands, s = _grid_stack(dev, 1)
+    s.search_all(cands, True)
+    plain = s.results.get_arrays()
+    s.enable_search_checkpointing(str(tmp_path / "ck"), tile_rows=24)
+    before = search_encoded_kernel.search_grouped.launches
+    s.search_all(cands, True)
+    assert search_encoded_kernel.search_grouped.launches == before + 3
+    assert s.timings["tiles_loaded"] == 0
+    tiled = s.results.get_arrays()
+    s.search_all(cands, True)
+    assert s.timings["tiles_loaded"] == 3 and search_encoded_kernel.search_grouped.launches == before + 3
+    for key in plain:
+        assert np.array_equal(tiled[key], plain[key]) and np.array_equal(s.results.get_arrays()[key], plain[key])

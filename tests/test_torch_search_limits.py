@@ -10,13 +10,14 @@
   (the documented tie rule, ROADMAP Queue 3).
 - switches: the five search switches the JAX package reads that change
   results are honoured: set or at its default, each gives the JAX
-  package's ``StackSearch`` results. The two pipeline switches, set to a
-  value other than their default, raise NotImplementedError naming them
-  in ``SearchRunner.run_search`` and ``configure_kb_search_stack``; at
-  their default they do not. Switches that only pick a TPU route are
-  ignored.
+  package's ``StackSearch`` results. The two pipeline switches are
+  honoured too: set, ``KB_SEARCH_CKPT_DIR`` leaves the search's tiles and
+  manifest in its directory (with the rows of a run without it) and
+  ``KB_PROFILE_DIR`` a Chrome trace in its; at their default nothing is
+  written. Switches that only pick a TPU route are ignored on one device.
 """
 
+import json
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -193,25 +194,39 @@ def test_sigmag_refinement_flag_on_a_rounding(monkeypatch):
 
 @pytest.mark.parametrize("default", [False, True], ids=["set", "default"])
 @pytest.mark.parametrize("name", sorted(PIPELINE_SWITCHES))
-def test_pipeline_switches_refused(monkeypatch, tmp_path, name, default):
+def test_pipeline_switches_honoured(monkeypatch, tmp_path, name, default):
     s, st = _small_search()
-    value = PIPELINE_SWITCHES[name][1 if default else 0]
-    monkeypatch.setenv(name, str(tmp_path / value) if value else "")
     config = SearchConfiguration(dict(
         generator_config={"name": "SingleVelocitySearch", "vx": 3.0, "vy": 1.0}, num_obs=3, lh_level=1.0,
         do_clustering=False, save_config=False,
     ))
+    plain = SearchRunner().run_search(config, st, device="cpu")
+    value = PIPELINE_SWITCHES[name][1 if default else 0]
+    monkeypatch.setenv(name, str(tmp_path / value) if value else "")
+    monkeypatch.setenv("KB_SEARCH_CKPT_TILE_ROWS", "7")
+    configure_kb_search_stack(s, config)
+    keep = SearchRunner().run_search(config, st, device="cpu")
+    assert len(keep) > 0
+    for col in ("x", "y", "vx", "vy", "likelihood", "flux", "obs_count"):
+        np.testing.assert_array_equal(keep[col], plain[col], err_msg=col)
+    written = sorted(p.relative_to(tmp_path).as_posix() for p in tmp_path.rglob("*") if p.is_file())
     if default:
-        configure_kb_search_stack(s, config)
-        assert len(SearchRunner().run_search(config, st, device="cpu")) > 0
+        assert s._checkpoint_dir is None
+        assert written == []
+    elif name == "KB_SEARCH_CKPT_DIR":
+        assert s._checkpoint_dir == str(tmp_path / "ckpt") and s._checkpoint_tile_rows == 7
+        # 18 rows in tiles of 7.
+        assert written == ["ckpt/manifest.json", "ckpt/tile_0_7.npz", "ckpt/tile_14_18.npz", "ckpt/tile_7_14.npz"]
     else:
-        with pytest.raises(NotImplementedError, match=name):
-            configure_kb_search_stack(s, config)
-        with pytest.raises(NotImplementedError, match=name):
-            SearchRunner().run_search(config, st, device="cpu")
+        assert len(written) == 1 and written[0].startswith("profile/kbmod_trace_"), written
+        with open(tmp_path / written[0]) as f:
+            trace = json.load(f)
+        assert trace["traceEvents"]
 
 
 def test_route_switches_ignored(monkeypatch):
+    # KB_SHARDED takes effect only with more than one shard: a search on the
+    # CPU has none unless a mesh of CPU devices is given (test_torch_sharded).
     s, _ = _small_search()
     for name, value in ROUTE_SWITCHES.items():
         monkeypatch.setenv(name, value)
