@@ -7,7 +7,8 @@
 Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. the card's name and power limit (nvidia-smi);
-2. the nvcc build of every CUDA kernel, all sources compiled together;
+2. the nvcc build of every CUDA kernel, all sources compiled together, and
+   the g++ build of the native host library;
 3. kernel checks: each kernel against its plain PyTorch twin on the card
    (K1 over PSFs from 1 x 1 to 21 x 21; K2; K3, K4 and K5 over
    uint8/uint16 codes, T up to 300; K2-K5 with lists of K = 128, past the
@@ -79,7 +80,21 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 13. K6's own path, the micro-benchmark script
    (``kbmod_tpu_torch.scripts.exactrow_microbench``), driven with the
    counts at 0 and read after;
-14. each kernel's time at the main path's shapes beside its twin's, its
+14. workunit: the main stack as a WorkUnit, every image under one WCS
+   (0.2 arcsec pixels), reprojected on the card onto a common WCS shifted by
+   (3.3, 2.7) pixels and rotated by 0.2 degrees (``reproject_work_unit``,
+   adaptive; the host coordinates, the card's resampling and the whole call
+   timed; every NaN must lie in the uncovered border or within the
+   stencil's reach of a masked pixel); ``run_search_from_work_unit`` on it
+   with the pipelines' configuration (K1, K2, no twin): row 0 within a grid
+   step of the object's trajectory mapped into the common frame (the
+   positions at the mean observation time, the speed and angle), its
+   ``global_ra``/``global_dec`` no further from the object's true sky path
+   than row 0's own pixel path plus half a pixel; the WorkUnit through
+   ``to_fits``/``from_fits`` (every layer equal) and the ``kbmod_search``
+   command in a child process on the card (its row 0 equal); a native
+   RICE_1 round trip and a sharded one of four layers;
+15. each kernel's time at the main path's shapes beside its twin's, its
    bound and (K1) cuDNN's grouped convolution, as one JSON line (K2 and K5
    at both of their main-path shapes: the full frame at K = 8 and the
    sigma-G band at K = 32, each held against the twin); K2 and K3 with
@@ -88,7 +103,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``midscale_kernel`` shapes (T = 64, 2048 x 2048, C = 33,153, K = 8);
    and K6's three modes at the script's defaults and at NG = 3,015;
    launches summed over every path above;
-15. as the last line, {"ok": true, "device": {...}}.
+16. as the last line, {"ok": true, "device": {...}}.
 
 Imports nothing of the JAX package.
 """
@@ -1617,6 +1632,260 @@ def profile_path(stack, obj, card):
 
 
 # ----------------------------------------------------------------------
+# The WorkUnit path: reprojection, search with sky positions, files, CLI
+# ----------------------------------------------------------------------
+
+# The WorkUnit phase: the images' WCS (0.2 arcsec pixels, Rubin's scale) and
+# the common WCS's offset from it: CRPIX + (3.3, 2.7) and 0.2 degrees of
+# rotation at the same scale.
+WU_CENTER = (200.0, -7.0)
+WU_DEG_PP = 0.2 / 3600.0
+WU_SHIFT = (3.3, 2.7)
+WU_ROTATION_DEG = 0.2
+# Layers written to the WorkUnit file the command-line child searches.
+WU_FILE_LAYERS = 64
+# Layers of the native RICE_1 and sharded round trips.
+WU_RICE_LAYERS = 4
+WU_CHILD_TIMEOUT_S = 300
+
+
+def _wu_wcses(H, W):
+    """(the images' WCS, the common WCS, the affine map image pixel ->
+    common pixel as (A, b)): both share CRVAL and the TAN projection, so the
+    map between their pixel grids is exactly affine."""
+    from kbmod_tpu_torch.geom.wcs import WCS
+    from kbmod_tpu_torch.wcs_utils import make_fake_wcs
+
+    img = make_fake_wcs(*WU_CENTER, H, W, WU_DEG_PP)
+    c, s = np.cos(np.radians(WU_ROTATION_DEG)), np.sin(np.radians(WU_ROTATION_DEG))
+    rot = np.array([[c, -s], [s, c]])
+    common = WCS(img.crpix + np.array(WU_SHIFT), img.crval, img.cd @ rot, shape=(H, W))
+    A = np.linalg.inv(rot)
+    # 0-based pixels: p_c = A (p_i + 1 - crpix_i) + crpix_c - 1.
+    b = -A @ (img.crpix - 1.0) + (common.crpix - 1.0)
+    return img, common, A, b
+
+
+def _nan_outside_allowed(layer, coords, invalid, radius, dev):
+    """Output NaNs that neither the uncovered border nor a masked source
+    pixel explains: a NaN is allowed where the rounded source coordinate
+    lies within ``radius`` of the image edge or of an invalid source pixel
+    (the stencil's reach). Counted on the card."""
+    H, W = invalid.shape
+    near = torch.nn.functional.max_pool2d(torch.as_tensor(invalid, device=dev, dtype=torch.float32)[None, None],
+                                          2 * radius + 1, stride=1, padding=radius)[0, 0] > 0
+    cy = torch.as_tensor(np.asarray(coords[0], np.float32), device=dev)
+    cx = torch.as_tensor(np.asarray(coords[1], np.float32), device=dev)
+    finite = torch.isfinite(cy) & torch.isfinite(cx)
+    yc = torch.round(torch.where(finite, cy, torch.zeros_like(cy))).long()
+    xc = torch.round(torch.where(finite, cx, torch.zeros_like(cx))).long()
+    edge = ~finite | (yc < radius) | (yc >= H - radius) | (xc < radius) | (xc >= W - radius)
+    allowed = edge | near[yc.clamp(0, H - 1), xc.clamp(0, W - 1)]
+    nan = torch.isnan(torch.as_tensor(layer, device=dev))
+    return int((nan & ~allowed).sum()), int(nan.sum()), int((nan & edge).sum())
+
+
+def workunit_path(stack, obj, card, dev):
+    """The WorkUnit path at full width: reproject the main stack's 64 layers
+    on the card onto a common WCS, search the result with
+    ``run_search_from_work_unit`` (K1, K2, sky positions), write it to a
+    file and search that with the ``kbmod_search`` command in a child
+    process, then the native RICE_1 and sharded round trips. Returns the
+    launches of the search."""
+    import tempfile
+
+    from kbmod_tpu_torch import native, reprojection
+    from kbmod_tpu_torch.configuration import SearchConfiguration
+    from kbmod_tpu_torch.core.image_stack_py import ImageStackPy
+    from kbmod_tpu_torch.geom.wcs import SkyCoordLite
+    from kbmod_tpu_torch.ops import reproject
+    from kbmod_tpu_torch.results import Results
+    from kbmod_tpu_torch.run_search import SearchRunner
+    from kbmod_tpu_torch.work_unit import WorkUnit
+
+    T, H, W = len(stack.sci), stack.height, stack.width
+    img_wcs, common, A, b = _wu_wcses(H, W)
+    config = SearchConfiguration(dict(generator_config=PIPELINE_GENERATOR))
+    work = WorkUnit(im_stack=stack, config=config, per_image_wcs=[img_wcs] * T)
+
+    # 1-2. Reprojection on the card, the host coordinates and the card's
+    # resampling timed apart.
+    spent = {"coords": 0.0, "resample": 0.0}
+    real_coords, real_resample = reprojection.compute_source_coordinates, reprojection.resample_layer
+
+    def timed(key, fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            spent[key] += time.perf_counter() - t0
+            return out
+        return call
+
+    reprojection.compute_source_coordinates = timed("coords", real_coords)
+    reprojection.resample_layer = timed("resample", real_resample)
+    try:
+        t0 = time.perf_counter()
+        reproj = reprojection.reproject_work_unit(work, common, frame="original", device=dev)
+        whole = time.perf_counter() - t0
+    finally:
+        reprojection.compute_source_coordinates, reprojection.resample_layer = real_coords, real_resample
+    coords = real_coords(img_wcs, common, (H, W))
+    radius = reproject._stencil_radius(coords, 0.5 * reproject.DEFAULT_KERNEL_WIDTH
+                                       * reproject.DEFAULT_SAMPLE_REGION_WIDTH)
+    bad = nan_total = nan_edge = 0
+    for t in range(T):
+        invalid = ~(np.isfinite(stack.sci[t]) & np.isfinite(stack.var[t]))
+        n_bad, n_nan, n_edge = _nan_outside_allowed(reproj.im_stack.sci[t], coords, invalid, radius, dev)
+        bad, nan_total, nan_edge = bad + n_bad, nan_total + n_nan, nan_edge + n_edge
+    # The card's resampling alone, one layer's two planes, CUDA events.
+    ok = np.isfinite(stack.sci[0]) & np.isfinite(stack.var[0])
+    planes = torch.as_tensor(np.stack([np.where(ok, stack.sci[0], 0), np.where(ok, stack.var[0], 0)])
+                             .astype(np.float32), device=dev)
+    val = torch.as_tensor(ok.astype(np.float32), device=dev)
+    cy, cx = (torch.as_tensor(np.asarray(c, np.float32), device=dev) for c in coords)
+    sigma = reproject.DEFAULT_KERNEL_WIDTH / (2.0 * np.sqrt(2.0 * np.log(2.0)))
+    trunc = 0.5 * reproject.DEFAULT_KERNEL_WIDTH * reproject.DEFAULT_SAMPLE_REGION_WIDTH
+    device_ms = event_ms(lambda: reproject._adaptive_resample(planes, val, cy, cx, radius, sigma * sigma,
+                                                              trunc * trunc, False), 3)
+    del planes, val, cy, cx
+    log(f"workunit: reprojected {T} layers of {H} x {W} on the card (adaptive, stencil radius {radius}) in "
+        f"{whole:.2f} s: host coordinates {spent['coords'] / T * 1e3:.1f} ms a layer, resample_layer (host to "
+        f"card, resampling, back; synchronized) {spent['resample'] / T * 1e3:.1f} ms a layer, the card's "
+        f"resampling alone {device_ms:.2f} ms a layer (CUDA events); {nan_total} NaN pixels, {nan_edge} of them "
+        f"in the uncovered border, {bad} unexplained; {card}")
+    if bad:
+        raise AssertionError(f"workunit: {bad} NaN pixels outside the border and the masked pixels' reach")
+    if nan_total > 0.5 * T * H * W:
+        raise AssertionError(f"workunit: {nan_total} of {T * H * W} reprojected pixels are NaN")
+
+    # 3. The search from the WorkUnit on the card, with sky positions.
+    runner = SearchRunner()
+    keep, launches, wall = drive("workunit: run_search_from_work_unit (K1, K2)", ("psi_phi_conv", "search_topk"),
+                                 lambda: runner.run_search_from_work_unit(reproj))
+    walls = {k: (v[1] - v[0]) * 1e3 for k, v in runner.phase_times.items()}
+    log("workunit: search phase walls (ms): " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()) + f"; {card}")
+    x_exp, y_exp = A @ np.array([obj.x, obj.y], dtype=np.float64) + b
+    vx_exp, vy_exp = A @ np.array([obj.vx, obj.vy], dtype=np.float64)
+    row = {k: keep[k][0] for k in ("x", "y", "vx", "vy", "likelihood", "obs_count")}
+    speed, angle = np.hypot(row["vx"], row["vy"]), np.arctan2(row["vy"], row["vx"])
+    speed_step = (PIPELINE_GENERATOR["v_arr"][1] - PIPELINE_GENERATOR["v_arr"][0]) / (PIPELINE_GENERATOR["v_arr"][2] - 1)
+    angle_step = sum(PIPELINE_GENERATOR["ang_arr"][:2]) / (PIPELINE_GENERATOR["ang_arr"][2] - 1)
+    d_angle = abs((angle - np.arctan2(vy_exp, vx_exp) + np.pi) % (2 * np.pi) - np.pi)
+    # Positions compared at the mean observation time, where the stack pins
+    # a trajectory (a velocity a fraction of a step off moves the best start
+    # pixel the other way).
+    dt = np.asarray(reproj.im_stack.zeroed_times)
+    t_mid = float(np.mean(dt))
+    dx_mid = row["x"] + row["vx"] * t_mid - (x_exp + vx_exp * t_mid)
+    dy_mid = row["y"] + row["vy"] * t_mid - (y_exp + vy_exp * t_mid)
+    log(f"workunit: {len(keep)} rows, row 0 {row}; expected in the common frame x={x_exp:.3f}, y={y_exp:.3f}, "
+        f"vx={vx_exp:.4f}, vy={vy_exp:.4f}; at the mean time {t_mid:.3f} d row 0 is off by ({dx_mid:.3f}, "
+        f"{dy_mid:.3f}) pixels, its speed by {speed - np.hypot(vx_exp, vy_exp):.4f} (step {speed_step}), its angle "
+        f"by {d_angle:.5f} rad (step {angle_step})")
+    if (abs(dx_mid) > 1 or abs(dy_mid) > 1 or abs(speed - np.hypot(vx_exp, vy_exp)) > speed_step
+            or d_angle > angle_step):
+        raise AssertionError(f"workunit: row 0 {row} is not within a grid step of the object's trajectory")
+    # The sky positions against the object's true sky path (through the
+    # images' WCS): off by no more than row 0's own distance from the
+    # expected trajectory plus half a pixel.
+    true = SkyCoordLite(*img_wcs.pixel_to_world_values(obj.x + obj.vx * dt, obj.y + obj.vy * dt))
+    sep = true.separation_deg(SkyCoordLite(np.asarray(keep["global_ra"][0]), np.asarray(keep["global_dec"][0])))
+    off_px = np.hypot(row["x"] + row["vx"] * dt - (x_exp + vx_exp * dt), row["y"] + row["vy"] * dt
+                      - (y_exp + vy_exp * dt))
+    sep_px = sep / WU_DEG_PP
+    log(f"workunit: row 0's sky path against the truth: at most {sep.max() * 3600:.4f} arcsec "
+        f"({sep_px.max():.3f} pixels); row 0's pixel path off the expected one by at most {off_px.max():.3f} "
+        f"pixels; sky minus pixel error at most {np.max(sep_px - off_px):.4f} pixels")
+    if np.any(sep_px > off_px + 0.5):
+        raise AssertionError("workunit: global_ra/global_dec stray more than half a pixel past row 0's own path")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # 4. The WorkUnit through a file and the command line, on the card.
+        n = min(WU_FILE_LAYERS, T)
+        if n < T:
+            raise AssertionError("workunit: the file step must take every layer to compare with row 0")
+        path = os.path.join(tmp, "wu.fits")
+        t0 = time.perf_counter()
+        reproj.to_fits(path)
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = WorkUnit.from_fits(path)
+        t_read = time.perf_counter() - t0
+        same = all(np.array_equal(back.im_stack.sci[t], reproj.im_stack.sci[t], equal_nan=True) for t in range(T))
+        out = os.path.join(tmp, "res.ecsv")
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [os.path.dirname(os.path.abspath(__file__)),
+                                                                         os.environ.get("PYTHONPATH")])))
+        t0 = time.perf_counter()
+        child = subprocess.run([sys.executable, "-m", "kbmod_tpu_torch.cmdline.kbmod_search", "--workunit", path,
+                                "--outfile", out], capture_output=True, text=True, env=env,
+                               timeout=WU_CHILD_TIMEOUT_S)
+        t_child = time.perf_counter() - t0
+        if child.returncode != 0:
+            raise AssertionError(f"workunit: kbmod_search exited {child.returncode}:\n{child.stderr[-4000:]}")
+        res = Results.read_table(out)
+        log(f"workunit: to_fits of {T} layers {t_write:.2f} s ({os.path.getsize(path) / 1e6:.1f} MB, GZIP_1), "
+            f"from_fits {t_read:.2f} s (layers equal: {same}); kbmod_search child {t_child:.2f} s: "
+            f"{child.stdout.strip()}; its row 0 (x={res['x'][0]}, y={res['y'][0]}, vx={res['vx'][0]:.4f}, "
+            f"vy={res['vy'][0]:.4f}, lh={res['likelihood'][0]:.4f})")
+        if not same:
+            raise AssertionError("workunit: the WorkUnit file does not read back with the same layers")
+        for k in ("x", "y", "vx", "vy", "likelihood", "obs_count"):
+            if res[k][0] != keep[k][0]:
+                raise AssertionError(f"workunit: the child's row 0 {k}={res[k][0]} is not {keep[k][0]}")
+        if not np.array_equal(np.asarray(res["global_ra"][0]), np.asarray(keep["global_ra"][0])):
+            raise AssertionError("workunit: the child's global_ra of row 0 differs")
+
+        # 5. Native RICE_1 (quantized) and the sharded form, four layers.
+        if not native.available():
+            raise AssertionError("workunit: the native library did not build")
+        sub = ImageStackPy(times=list(stack.times[:WU_RICE_LAYERS]), sci=[stack.sci[t] for t in range(WU_RICE_LAYERS)],
+                           var=[stack.var[t] for t in range(WU_RICE_LAYERS)],
+                           psfs=[stack.psfs[t] for t in range(WU_RICE_LAYERS)])
+        small = WorkUnit(im_stack=sub, config=config, wcs=common)
+        calls = {"n": 0}
+        real_encode = native.rice_encode
+
+        def counted(*args):
+            calls["n"] += 1
+            return real_encode(*args)
+
+        native.rice_encode = counted
+        try:
+            t0 = time.perf_counter()
+            small.to_fits(os.path.join(tmp, "rice.fits"), compression_type="RICE_1")
+            t_rice_w = time.perf_counter() - t0
+        finally:
+            native.rice_encode = real_encode
+        t0 = time.perf_counter()
+        rice = WorkUnit.from_fits(os.path.join(tmp, "rice.fits"))
+        t_rice_r = time.perf_counter() - t0
+        worst = 0.0
+        for t in range(WU_RICE_LAYERS):
+            for a, b_ in ((rice.im_stack.sci[t], sub.sci[t]), (rice.im_stack.var[t], sub.var[t])):
+                masked = ~(np.isfinite(sub.sci[t]) & np.isfinite(sub.var[t]))
+                if not np.array_equal(np.isnan(a), masked):
+                    raise AssertionError("workunit: the RICE_1 file's masks differ")
+                worst = max(worst, float(np.max(np.abs(a[~masked] - b_[~masked]))))
+        t0 = time.perf_counter()
+        small.to_sharded_fits("wu.fits", os.path.join(tmp, "shards"))
+        t_sh_w = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sharded = WorkUnit.from_sharded_fits("wu.fits", os.path.join(tmp, "shards"))
+        t_sh_r = time.perf_counter() - t0
+        sh_same = all(np.array_equal(sharded.im_stack.sci[t], sub.sci[t], equal_nan=True)
+                      and np.array_equal(sharded.im_stack.var[t], sub.var[t], equal_nan=True)
+                      for t in range(WU_RICE_LAYERS))
+        log(f"workunit: native RICE_1 round trip of {WU_RICE_LAYERS} layers ({calls['n']} native encodes): write "
+            f"{t_rice_w:.2f} s, read {t_rice_r:.2f} s, max |error| {worst:.5f} (half a 0.01 quantum); sharded "
+            f"round trip write {t_sh_w:.2f} s, read {t_sh_r:.2f} s, equal: {sh_same}")
+        if calls["n"] == 0 or worst > 0.0051:
+            raise AssertionError(f"workunit: RICE_1 round trip: {calls['n']} native encodes, max error {worst}")
+        if not sh_same:
+            raise AssertionError("workunit: the sharded round trip changed the layers")
+    return launches
+
+
+# ----------------------------------------------------------------------
 # Kernel times at the main path's shapes
 # ----------------------------------------------------------------------
 
@@ -1911,6 +2180,14 @@ def main():
     for name, text in logs.items():
         log(f"nvcc {name}.cu:\n{text.strip() or '(already built)'}")
     log(f"kernel build: {time.perf_counter() - t0:.1f} s")
+    # The host library (native/, g++) is built here too, so that no timed
+    # phase pays for its first use.
+    from kbmod_tpu_torch import native
+
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError("the native library (kbmod_tpu_torch/native) did not build")
+    log(f"native library: {native.library_path().name} in {time.perf_counter() - t0:.2f} s")
     for name in REPORTED:
         for fn, regs, st, ld in ptxas_summary(logs[name]):
             log(f"ptxas {name}.cu {fn}: {regs} registers, {st} bytes spill stores, {ld} bytes spill loads")
@@ -1939,6 +2216,7 @@ def main():
     launches_sh, _ = sharded_path(search, searches, stack, obj, cands, full_rows, card, dev)
     launches_prof = profile_path(stack, obj, card)
     launches_k6 = k6_path()
+    launches_wu = workunit_path(stack, obj, card, dev)
     k1 = time_k1(stack, dev)
     T, H, W = len(stack.sci), *np.asarray(stack.sci[0]).shape
     y0 = obj.y - 128
@@ -1981,7 +2259,7 @@ def main():
 
     launches = {k: launches_f[k] + launches_q[k] + launches_p.get(k, 0) + launches_s.get(k, 0)
                 + vetting["launches"].get(k, 0) + launches_c.get(k, 0) + launches_sh.get(k, 0)
-                + launches_prof.get(k, 0) for k in launches_f}
+                + launches_prof.get(k, 0) + launches_wu.get(k, 0) for k in launches_f}
     entries = [
         entry("psi_phi_conv", "psi_phi_conv.cu", "conv_pallas.py:32", launches["psi_phi_conv"], err_k1, k1),
         entry("search_topk", "search_topk.cu", "search_pallas.py:182", launches["search_topk"],

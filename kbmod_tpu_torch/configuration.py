@@ -2,11 +2,11 @@
 
 Port of the JAX package's configuration.py (itself API- and
 default-compatible with the reference's kbmod.configuration): the same
-parameter names, defaults, sections and validators, with dict, YAML and file
-round-trips. PyYAML is imported only by the YAML forms (``from_yaml``,
-``to_yaml``, the file and table forms), which raise an ImportError naming it
-where it is missing; the dict forms need nothing. The FITS-HDU forms wait
-for the port's FITS IO and raise NotImplementedError.
+parameter names, defaults, sections and validators, with dict, YAML, file,
+table and FITS-HDU round-trips; the FITS forms write the JAX package's
+HDUs. PyYAML is imported only by the YAML forms (``from_yaml``,
+``to_yaml``, the file, table and FITS forms), which raise an ImportError
+naming it where it is missing; the dict forms need nothing.
 """
 
 import copy
@@ -28,9 +28,6 @@ def _yaml():
             "use from_dict/to_dict instead"
         ) from err
     return yaml
-
-
-_FITS_DEFERRED = "the FITS-HDU forms of SearchConfiguration wait for the port's FITS IO"
 
 
 class _ParamInfo:
@@ -312,13 +309,34 @@ class SearchConfiguration:
 
     @classmethod
     def from_hdu(cls, hdu):
-        """Build from a FITS HDU (not ported yet)."""
-        raise NotImplementedError(_FITS_DEFERRED)
+        """Build from a FITS HDU: the reference's one-row BINTABLE with
+        YAML-dumped per-parameter columns (configuration.py:568-577), or the
+        header-embedded YAML dump of ``to_hdu``."""
+        from kbmod_tpu_torch.io.fits_io import BinTableHDU
+
+        if isinstance(hdu, BinTableHDU):
+            from kbmod_tpu_torch.table import Table
+
+            data = {k: list(v) if not isinstance(v, list) else v for k, v in hdu.columns.items()}
+            return cls.from_table(Table(data))
+        return cls.from_yaml(hdu.get_long_string("YAMLCFG"))
 
     def to_hdu(self):
-        """The configuration as a FITS HDU (not ported yet)."""
-        raise NotImplementedError(_FITS_DEFERRED)
+        """The configuration as an image HDU holding its YAML dump."""
+        from kbmod_tpu_torch.io.fits_io import ImageHDU
+
+        hdu = ImageHDU(name="kbmod_config")
+        hdu.set_long_string("YAMLCFG", self.to_yaml())
+        return hdu
 
     def to_reference_hdu(self):
-        """The reference's one-row BINTABLE layout (not ported yet)."""
-        raise NotImplementedError(_FITS_DEFERRED)
+        """The reference layout: a one-row BINTABLE, one column per
+        parameter, each cell a YAML dump (configuration.py:584-598)."""
+        from kbmod_tpu_torch.io.fits_io import BinTableHDU
+
+        yaml = _yaml()
+        cols = {
+            key: [yaml.safe_dump(val, default_flow_style=True).strip()]
+            for key, val in self._params.items()
+        }
+        return BinTableHDU(columns=cols, name="KBMOD_CONFIG", nrows=1)

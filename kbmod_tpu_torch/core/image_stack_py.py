@@ -9,8 +9,7 @@ These containers are deliberately host/numpy objects: they are the mutable
 ingestion-side representation. The device-side search uses the
 ``PsiPhiArray`` built from them (kbmod_tpu_torch.ops.psi_phi), and the coadd
 stamps gather their windows from the per-time images on the host
-(kbmod_tpu_torch.ops.stamps). ``get_matched_obstimes`` waits for the rest of
-util_functions.
+(kbmod_tpu_torch.ops.stamps).
 """
 
 import logging
@@ -296,6 +295,13 @@ class ImageStackPy:
         self.times = self.times[order]
         self.zeroed_times = self.times - self.times[0]
         return order
+
+    def get_matched_obstimes(self, query_times, threshold=0.0007):
+        """For each query time, the index of the stack time within
+        ``threshold`` days (or -1)."""
+        from kbmod_tpu_torch.util_functions import get_matched_obstimes
+
+        return get_matched_obstimes(self.times, query_times, threshold)
 
     def validate(self, masked_fraction=0.5, min_flux=-1e8, max_flux=1e8, min_var=1e-20, max_var=1e8):
         """Run basic sanity checks, logging a warning and returning False on

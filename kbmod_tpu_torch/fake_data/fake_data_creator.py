@@ -3,16 +3,18 @@
 Subset of the JAX package's fake_data/fake_data_creator.py (the reference's
 kbmod.fake_data.fake_data_creator): night-cadenced fake times,
 Gaussian-noise stacks with flat variance, PSF-shaped flux injection, random
-masking and artifacts, and a FakeDataSet bundling them. Values are drawn
-from the same numpy generator in the same order, so a seed gives the same
-stack as the JAX package's. The data is made on the host.
+masking and artifacts, and a FakeDataSet that bundles them into a WorkUnit.
+Values are drawn from the same numpy generator in the same order, so a seed
+gives the same stack as the JAX package's. The data is made on the host.
 """
 
 import numpy as np
 
+from kbmod_tpu_torch.configuration import SearchConfiguration
 from kbmod_tpu_torch.core.image_stack_py import ImageStackPy
 from kbmod_tpu_torch.core.psf import PSF
 from kbmod_tpu_torch.search.trajectory import Trajectory
+from kbmod_tpu_torch.work_unit import WorkUnit
 
 
 def create_fake_times(num_times, t0=0.0, obs_per_day=1, intra_night_gap=0.01, inter_night_gap=1):
@@ -92,7 +94,8 @@ def image_stack_add_fake_object(stack, x, y, vx, vy, *, ax=0.0, ay=0.0, flux=100
 
 
 class FakeDataSet:
-    """A fake image stack plus injected trajectories."""
+    """A fake image stack plus injected trajectories, convertible to a
+    WorkUnit."""
 
     def __init__(
         self,
@@ -125,6 +128,7 @@ class FakeDataSet:
         self.rng = np.random.default_rng(use_seed)
         self.trajectories = []
         self.stack_py = None
+        self.fake_wcs = None
         self.reset()
 
     def reset(self):
@@ -140,6 +144,9 @@ class FakeDataSet:
                 self.stack_py, self.artifacts_fraction, self.artifacts_mean, self.artifacts_std, rng=self.rng
             )
         self.trajectories = []
+
+    def set_wcs(self, new_wcs):
+        self.fake_wcs = new_wcs
 
     def insert_object(self, trj):
         """Insert one trajectory's object into the stack."""
@@ -182,3 +189,19 @@ class FakeDataSet:
             trj = self.insert_random_object(flux, vx=float(vxs[i]), vy=float(vys[i]))
             inserted.append(trj)
         return inserted
+
+    def get_work_unit(self, config=None):
+        """Bundle the fake data into a WorkUnit."""
+        if config is None:
+            config = SearchConfiguration()
+        elif isinstance(config, dict):
+            config = SearchConfiguration.from_dict(config)
+        return WorkUnit(
+            im_stack=self.stack_py,
+            config=config,
+            wcs=self.fake_wcs,
+            obstimes=self.times,
+        )
+
+    def save_fake_data_to_work_unit(self, filename, config=None):
+        self.get_work_unit(config).to_fits(filename, overwrite=True)

@@ -5,9 +5,10 @@ with the reference's kbmod.filters.clustering_grid
 (src/kbmod/filters/clustering_grid.py): trajectories hash into a
 (start_bin_x, start_bin_y, end_bin_x, end_bin_y) 4-tuple, keeping the
 highest-likelihood trajectory per bin. The bulk path
-(``grid_keep_indices``) replaces the per-trajectory Python loop with a numpy
-lexsort, the form the pipeline uses for millions of raw results; the JAX
-package's native hash-map helper is not ported, and gives the same rows.
+(``grid_keep_indices``) replaces the per-trajectory Python loop with the
+native C++ hash map (kbmod_tpu_torch.native) or, where that library is
+unavailable or the bins leave its packed-key range, a numpy lexsort: the
+form the pipeline uses for millions of raw results. Both give the same rows.
 """
 
 import numpy as np
@@ -30,11 +31,21 @@ def grid_keep_indices(x0, y0, vx, vy, lh, bin_width, max_time):
     occupied bin; ties keep the earliest index (the reference's '>' update
     rule keeps the first-seen on ties, clustering_grid.py:87).
 
-    A numpy lexsort over (bin, -lh, index).
+    Uses the native C++ hash-map path (kbmod_tpu_torch.native.grid_dedup) when
+    the bin coordinates fit its packed-key range; falls back to a numpy
+    lexsort over (bin, -lh, index).
     """
     n = len(x0)
     if n == 0:
         return np.array([], dtype=int)
+
+    from kbmod_tpu_torch import native
+
+    bins_preview = _bin_indices(x0, y0, vx, vy, bin_width, max_time)
+    if native.available() and all(np.abs(b).max(initial=0) < 32000 for b in bins_preview):
+        kept = native.grid_dedup(x0, y0, vx, vy, lh, bin_width, max_time)
+        if kept is not None:
+            return kept
 
     bins = np.stack(_bin_indices(x0, y0, vx, vy, bin_width, max_time), axis=1)
     # Sort by bin then by descending lh then ascending index (stable).

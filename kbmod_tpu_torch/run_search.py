@@ -19,8 +19,12 @@ checkpoints the search per row tile, so that a killed run resumes
 mid-search; ``KB_PROFILE_DIR`` traces the whole run with ``torch.profiler``
 (CPU and CUDA activities) into a Chrome trace file there.
 
-Not ported yet, and refused rather than ignored: WorkUnit inputs and RA/Dec
-output (they need the port's WorkUnit).
+A WorkUnit (``run_search(..., workunit=...)``, ``run_search_from_work_unit``)
+adds the QA cut on the WorkUnit, the ecliptic angle from its WCS and RA/Dec
+output (``append_positions_to_results``, host numpy). Where ``color_scale``
+is set, ``run_search_from_work_unit`` applies it with
+``WorkUnit.apply_color_scale``; the JAX package calls a method its image
+stack lacks there and raises AttributeError.
 """
 
 import logging
@@ -51,6 +55,7 @@ from kbmod_tpu_torch.parallel.sharded import TIME_CHUNK_ELEMENTS, search_mesh
 from kbmod_tpu_torch.results import Results, write_results_to_files_destructive
 from kbmod_tpu_torch.search import StackSearch, TrajectoryList
 from kbmod_tpu_torch.trajectory_generator import create_trajectory_generator
+from kbmod_tpu_torch.trajectory_utils import predict_pixel_locations
 
 logger = logging.getLogger("kbmod.run_search")
 
@@ -546,18 +551,18 @@ class SearchRunner:
     def run_search(self, config, stack, trj_generator=None, workunit=None, extra_meta=None, device=None):
         """The highest-level entry: search an ImageStackPy with a
         SearchConfiguration (reference run_search.py:396-593) on
-        ``device`` (default: the runner's, else CUDA). Raises
-        NotImplementedError for a WorkUnit. With ``KB_PROFILE_DIR`` set the
-        whole run is traced (:func:`profiled`)."""
-        if workunit is not None:
-            raise NotImplementedError("SearchRunner.run_search: WorkUnit inputs wait for the port's WCS and WorkUnit")
+        ``device`` (default: the runner's, else CUDA). With a ``workunit``
+        (whose ``im_stack`` is ``stack``) the QA cut filters the WorkUnit,
+        the results carry its WCS and, with ``compute_ra_dec``, sky
+        positions. With ``KB_PROFILE_DIR`` set the whole run is traced
+        (:func:`profiled`)."""
         if device is not None:
             self._device = device
         self.device = resolve_device(self._device)
         with profiled(os.environ.get("KB_PROFILE_DIR"), self.device):
-            return self._run_search(config, stack, trj_generator, extra_meta)
+            return self._run_search(config, stack, trj_generator, workunit, extra_meta)
 
-    def _run_search(self, config, stack, trj_generator, extra_meta):
+    def _run_search(self, config, stack, trj_generator, workunit, extra_meta):
         self.apply_config(config)
         if self.debug:
             logger.debug(f"Device: {self.device}, CUDA available: {torch.cuda.is_available()}")
@@ -567,7 +572,11 @@ class SearchRunner:
         # Image QA: drop overly-masked images.
         if config["max_masked_pixels"] < 1.0:
             keep_mask = stack.get_masked_fractions() <= config["max_masked_pixels"]
-            stack.filter_images(keep_mask)
+            if workunit is not None:
+                workunit.filter_images(keep_mask)
+                stack = workunit.im_stack
+            else:
+                stack.filter_images(keep_mask)
         logger.debug(f"Searching over {stack.num_times} images after the obs-validity cut.")
 
         # num_obs can never exceed the number of usable (<90% masked)
@@ -596,9 +605,21 @@ class SearchRunner:
         self._truncate_to_max_results(keep, config)
         self._stamp_phase(keep, config, stack)
 
+        # Sky-coordinate output from the WorkUnit's WCS information.
+        if workunit is not None:
+            keep.wcs = workunit.wcs
+            if config["compute_ra_dec"]:
+                self._start_phase("append_positions_to_results")
+                append_positions_to_results(workunit, keep)
+                self._end_phase("append_positions_to_results")
+
         # Save results + metadata.
         self._start_phase("write results")
         meta_to_save = dict(extra_meta) if extra_meta is not None else {}
+        if workunit is not None:
+            meta_to_save.update(
+                workunit.get_constituent_meta(["visit", "filter", "data_loc", "dataId", "color_scale"])
+            )
         meta_to_save["num_img"] = stack.num_times
         meta_to_save["dims"] = (stack.width, stack.height)
         keep.set_mjd_utc_mid(np.array(stack.times))
@@ -634,13 +655,73 @@ class SearchRunner:
             self.display_phase_stats()
         return keep
 
-    def run_search_from_work_unit(self, work):
-        """Run a search from a WorkUnit (not ported yet: it needs the port's
-        WorkUnit and WCS)."""
-        raise NotImplementedError("SearchRunner.run_search_from_work_unit waits for the port's WorkUnit and WCS")
+    def run_search_from_work_unit(self, work, device=None):
+        """Run a search from a WorkUnit on ``device`` (default: the
+        runner's, else CUDA): the trajectory generator's ecliptic angle
+        comes from the WCS, and ``color_scale``, where set, scales the
+        images through ``WorkUnit.apply_color_scale``."""
+        trj_generator = create_trajectory_generator(work.config, work_unit=work)
+        if work.config["color_scale"] is not None:
+            work.apply_color_scale(work.config["color_scale"])
+        return self.run_search(work.config, work.im_stack, trj_generator=trj_generator, workunit=work,
+                               device=device)
 
 
 def append_positions_to_results(workunit, results):
     """Append predicted pixel and (RA, Dec) positions per time to the
-    results (not ported yet: it needs the port's WorkUnit and WCS)."""
-    raise NotImplementedError("append_positions_to_results waits for the port's WorkUnit and WCS")
+    results (reference run_search.py:620-689): global_ra/global_dec from
+    the common WCS and img_ra/img_dec in the original frame (inverting the
+    EBD parallax correction when the WorkUnit is reprojected there), or
+    from each image's own WCS when there is no common one. Host numpy."""
+    from kbmod_tpu_torch.geom.wcs import SkyCoordLite
+    from kbmod_tpu_torch.reprojection_utils import invert_correct_parallax_vectorized
+
+    num_results = len(results)
+    if num_results == 0:
+        return
+
+    num_times = workunit.im_stack.num_times
+    times = workunit.im_stack.zeroed_times
+
+    xp = predict_pixel_locations(times, results["x"], results["vx"], as_int=False, centered=False)
+    yp = predict_pixel_locations(times, results["y"], results["vy"], as_int=False, centered=False)
+    results.table["pred_x"] = xp
+    results.table["pred_y"] = yp
+
+    all_ra = np.zeros((num_results, num_times))
+    all_dec = np.zeros((num_results, num_times))
+
+    if workunit.wcs is not None:
+        logger.info("Common WCS present - computing global_ra/global_dec for every result row.")
+        ra, dec = workunit.wcs.pixel_to_world_values(xp, yp)
+        results.table["global_ra"] = ra
+        results.table["global_dec"] = dec
+
+        if workunit.reprojected and workunit.reprojection_frame != "ebd":
+            logger.warning("WorkUnit was not reprojected to EBD space; per-image img_ra/img_dec are omitted.")
+            all_ra = ra
+            all_dec = dec
+        elif workunit.reprojected:
+            obstimes = workunit.get_all_obstimes()
+            for time_idx in range(num_times):
+                coords = SkyCoordLite(ra[:, time_idx], dec[:, time_idx])
+                coords.distance_au = np.full(num_results, workunit.barycentric_distance)
+                original = invert_correct_parallax_vectorized(
+                    coords, obstimes=obstimes[time_idx], point_on_earth=workunit.observatory
+                )
+                all_ra[:, time_idx] = original.ra_deg
+                all_dec[:, time_idx] = original.dec_deg
+        else:
+            all_ra = ra
+            all_dec = dec
+    else:
+        logger.info("No common WCS found. Computing img_ra/img_dec from per-image WCSes.")
+        for time_idx in range(num_times):
+            wcs = workunit.get_wcs(time_idx)
+            if wcs is not None:
+                ra, dec = wcs.pixel_to_world_values(xp[:, time_idx], yp[:, time_idx])
+                all_ra[:, time_idx] = ra
+                all_dec[:, time_idx] = dec
+
+    results.table["img_ra"] = all_ra
+    results.table["img_dec"] = all_dec

@@ -11,9 +11,9 @@ numpy float32 arrays: the device search consumes the struct-of-arrays form
 directly instead of a Python object loop.
 
 Unit handling is a minimal internal converter (no astropy): angles accept
-radian/degree/arcmin/arcsec, velocities accept pix/day (and pix/hour). A
-WorkUnit's ecliptic angle needs its WCS, which the port does not have yet:
-the generators that would read it raise NotImplementedError instead.
+radian/degree/arcmin/arcsec, velocities accept pix/day (and pix/hour). The
+generators centred on the ecliptic take its angle from a WorkUnit's WCS
+(``WorkUnit.compute_ecliptic_angle``) when none is given.
 """
 
 import abc
@@ -28,7 +28,6 @@ from kbmod_tpu_torch.search.trajectory import Trajectory
 
 logger = logging.getLogger(__name__)
 
-_WCS_DEFERRED = "the ecliptic angle of a WorkUnit needs its WCS, which the port does not have yet"
 
 _ANGLE_TO_RAD = {
     "radian": 1.0,
@@ -342,7 +341,7 @@ class KBMODV1SearchConfig(KBMODV1Search):
                 raise ValueError(
                     "KBMODV1SearchConfig requires a valid average_angle or a WorkUnit with a WCS."
                 )
-            raise NotImplementedError(_WCS_DEFERRED)
+            average_angle = work_unit.compute_ecliptic_angle()
         ang_min = average_angle - ang_arr[0]
         ang_max = average_angle + ang_arr[1]
         super().__init__(int(v_arr[2]), v_arr[0], v_arr[1], int(ang_arr[2]), ang_min, ang_max, **kwargs)
@@ -362,7 +361,8 @@ class EclipticCenteredSearch(TrajectoryGenerator):
         if given_ecliptic is not None:
             self.ecliptic_angle = angle_to_radians(given_ecliptic, angle_units)
         elif work_unit is not None:
-            raise NotImplementedError(_WCS_DEFERRED)
+            self.ecliptic_angle = work_unit.compute_ecliptic_angle()
+            logger.info(f"Computing ecliptic angle from wcs: {self.ecliptic_angle}")
         else:
             logger.warning("No ecliptic angle provided. Using 0.0.")
             self.ecliptic_angle = 0.0

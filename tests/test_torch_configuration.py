@@ -1,7 +1,7 @@
 """The port's SearchConfiguration against the JAX package's: every
-parameter's default, section and validator verdicts, the dict and YAML
-round trips, and the forms the port defers (FITS) or serves without PyYAML
-(dict). Exact equality throughout."""
+parameter's default, section and validator verdicts, the dict, YAML and
+FITS round trips, and the forms it serves without PyYAML (dict). Exact
+equality throughout."""
 
 import math
 import sys
@@ -104,8 +104,21 @@ def test_yaml_forms_name_pyyaml_when_missing(monkeypatch):
     assert TSearchConfiguration.from_dict(cfg.to_dict()) == cfg
 
 
-def test_fits_forms_are_deferred():
-    cfg = TSearchConfiguration()
-    for call in (cfg.to_hdu, cfg.to_reference_hdu, lambda: TSearchConfiguration.from_hdu(None)):
-        with pytest.raises(NotImplementedError, match="FITS"):
-            call()
+def test_fits_forms_are_deferred(tmp_path):
+    """The three FITS forms (no longer deferred): each HDU equals the JAX
+    package's and round-trips, through a file too."""
+    from kbmod_tpu.io import fits_io as j_fits_io
+    from kbmod_tpu_torch.io import fits_io
+
+    data = {"num_obs": 7, "sigmaG_lims": [20, 80], "color_scale": {"r": 0.1}, "result_filename": "out dir/x.ecsv"}
+    cfg = TSearchConfiguration(data)
+    for form in ("to_hdu", "to_reference_hdu"):
+        hdu, jhdu = getattr(cfg, form)(), getattr(SearchConfiguration(data), form)()
+        assert hdu.header == jhdu.header
+        assert getattr(hdu, "columns", None) == getattr(jhdu, "columns", None)
+        assert TSearchConfiguration.from_hdu(hdu) == cfg
+        path = str(tmp_path / f"{form}.fits")
+        fits_io.write_fits(path, [fits_io.ImageHDU(name="PRIMARY"), hdu])
+        assert TSearchConfiguration.from_hdu(fits_io.read_fits(path)[1]) == cfg
+        assert SearchConfiguration.from_hdu(j_fits_io.read_fits(path)[1]).to_dict() == cfg.to_dict()
+

@@ -1,5 +1,6 @@
 """kbmod_tpu_torch stands alone: it imports and runs a CPU search (float
-and uint8) with ``jax``, ``flax`` and ``kbmod_tpu`` blocked, and the whole
+and uint8) and the WorkUnit path (write, read, reproject, search with sky
+positions) with ``jax``, ``flax`` and ``kbmod_tpu`` blocked, and the whole
 ``SearchRunner`` pipeline (ECSV output, the default clustering, then CNN,
 brightness and known-object vetting of its rows) with scikit-learn,
 PyYAML, pandas, pyarrow, psutil and h5py blocked too; no module of the
@@ -44,6 +45,28 @@ _SCRIPT = textwrap.dedent(
     q.search_all(list(VelocityGridSearch(5, 1.0, 5.0, 5, -1.0, 3.0)), True)
     best_q = q.get_results(0, 1)[0]
     assert (best_q.x, best_q.y) == (9, 14), best_q
+
+    # The WorkUnit path: make one, write it (RICE_1 through the native
+    # codec) and read it, reproject it, search it with sky positions.
+    import os, tempfile
+    from kbmod_tpu_torch import native
+    from kbmod_tpu_torch.reprojection import reproject_work_unit
+    from kbmod_tpu_torch.run_search import SearchRunner
+    from kbmod_tpu_torch.wcs_utils import make_fake_wcs
+    from kbmod_tpu_torch.work_unit import WorkUnit
+    work = ds.get_work_unit(dict(generator_config={"name": "VelocityGridSearch", "vx_steps": 5, "min_vx": 1.0,
+                                                   "max_vx": 5.0, "vy_steps": 5, "min_vy": -1.0, "max_vy": 3.0},
+                                 num_obs=4, lh_level=5.0))
+    for i in range(len(times)):
+        work.org_img_meta["per_image_wcs"][i] = make_fake_wcs(200.0, -7.0, 30, 32, 1.0 / 3600.0)
+    path = os.path.join(tempfile.mkdtemp(), "wu.fits")
+    work.to_fits(path, compression_type="RICE_1")
+    back = WorkUnit.from_fits(path)
+    assert back.config == work.config and back.im_stack.num_times == len(times) and native.available()
+    common = make_fake_wcs(200.0, -7.0, 30, 32, 1.0 / 3600.0)
+    common.crpix = common.crpix + np.array([0.3, 0.2])
+    keep = SearchRunner(device="cpu").run_search_from_work_unit(reproject_work_unit(back, common, device="cpu"))
+    assert "global_ra" in keep.colnames and abs(keep["x"][0] - 9) <= 1 and abs(keep["y"][0] - 14) <= 1, keep["x"]
     assert not any(m in ("jax", "flax") or m.startswith(("jax.", "flax.", "kbmod_tpu.")) for m in sys.modules
                    if sys.modules[m] is not None)
     print("OK", best, best_q)
@@ -107,6 +130,7 @@ _PIPELINE_SCRIPT = textwrap.dedent(
     matcher = KnownObjsMatcher(catalog, np.asarray(ds.stack_py.times), "ko", sep_thresh=0.5)
     matcher.match(keep, wcs)
     assert "obj" in keep["ko"][int(np.argmax(keep["likelihood"]))]
+
     bad = [m for m in ("jax", "flax", "kbmod_tpu", "sklearn", "yaml", "pandas", "pyarrow", "psutil", "h5py")
            if sys.modules.get(m) is not None]
     assert not bad, bad
@@ -166,7 +190,10 @@ def test_port_walk_finds_every_package():
     assert "kbmod_tpu_torch/scripts/exactrow_microbench.py" in _PORT_FILES
     assert "kbmod_tpu_torch/ops/search_kernel.py" in _PORT_FILES
     for new in ("models/cnn.py", "filters/brightness_filters.py", "filters/known_object_filters.py",
-                "geom/wcs.py", "geom/ecliptic.py", "wcs_utils.py"):
+                "geom/wcs.py", "geom/ecliptic.py", "wcs_utils.py", "native/__init__.py", "io/rice.py",
+                "io/comp_image.py", "io/fits_bintable.py", "io/fits_io.py", "work_unit.py", "reprojection.py",
+                "reprojection_utils.py", "ops/reproject.py", "cmdline/kbmod_search.py", "geom/geodesy.py",
+                "constants.py"):
         assert f"kbmod_tpu_torch/{new}" in _PORT_FILES
     assert len(_PORT_FILES) >= 25
 

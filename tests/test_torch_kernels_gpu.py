@@ -841,3 +841,103 @@ def test_checkpointed_k5_search_on_card(dev, tmp_path):
     assert s.timings["tiles_loaded"] == 3 and search_encoded_kernel.search_grouped.launches == before + 3
     for key in plain:
         assert np.array_equal(tiled[key], plain[key]) and np.array_equal(s.results.get_arrays()[key], plain[key])
+
+
+def _resample_case(size=2048):
+    """A full-width layer and the coordinates of a common WCS shifted by
+    (3.3, 2.7) pixels and rotated by 0.2 degrees at the same scale."""
+    from kbmod_tpu_torch.geom.wcs import WCS
+    from kbmod_tpu_torch.ops.reproject import compute_source_coordinates
+    from kbmod_tpu_torch.wcs_utils import make_fake_wcs
+
+    rng = np.random.default_rng(12)
+    sci = rng.normal(10, 2, (size, size)).astype(np.float32)
+    var = rng.uniform(1, 4, (size, size)).astype(np.float32)
+    sci[rng.uniform(size=sci.shape) < 0.01] = np.nan
+    src = make_fake_wcs(200.0, -7.0, size, size, 0.2 / 3600.0)
+    c, s = np.cos(np.radians(0.2)), np.sin(np.radians(0.2))
+    dst = WCS(src.crpix + np.array([3.3, 2.7]), src.crval, src.cd @ np.array([[c, -s], [s, c]]), shape=(size, size))
+    return sci, var, compute_source_coordinates(src, dst, (size, size))
+
+
+@pytest.mark.parametrize("method", ["adaptive", "bilinear"])
+def test_resample_layer_on_card_equals_cpu(dev, method):
+    """resample_layer on the card against the same call on the CPU at
+    2048 x 2048: values within 1e-5 * max(|cpu|, 1) (the card's expf and
+    the CPU's exp differ by ulps), good masks equal except where both
+    footprints lie within 1e-5 of the 0.999 threshold (counted)."""
+    from kbmod_tpu_torch.ops import reproject
+
+    sci, var, coords = _resample_case()
+    got = reproject.resample_layer(sci, var, coords, method=method, device=dev)
+    ref = reproject.resample_layer(sci, var, coords, method=method, device="cpu")
+    flips = got[2] != ref[2]
+    if flips.any():
+        ok = np.isfinite(sci) & np.isfinite(var)
+        planes = torch.as_tensor(np.stack([np.where(ok, sci, 0), np.where(ok, var, 0)]).astype(np.float32))
+        cy, cx = (torch.as_tensor(np.asarray(c, np.float32)) for c in coords)
+        val = torch.as_tensor(ok.astype(np.float32))
+        feet = []
+        for where in (dev, torch.device("cpu")):
+            args = (planes.to(where), val.to(where), cy.to(where), cx.to(where))
+            if method == "bilinear":
+                feet.append(reproject._bilinear_resample(*args)[1].cpu().numpy())
+            else:
+                radius = reproject._stencil_radius(coords, 2.6)
+                sigma = 1.3 / (2.0 * np.sqrt(2.0 * np.log(2.0)))
+                feet.append(reproject._adaptive_resample(*args, radius, sigma * sigma, 2.6 * 2.6, False)[1]
+                            .cpu().numpy())
+        near = np.all([np.abs(f - 0.999) <= 1e-5 for f in feet], axis=0)
+        assert near[flips].all()
+    print(f"{method}: {int(flips.sum())} pixels flip at the footprint threshold")
+    both = got[2] & ref[2]
+    for a, b in zip(ref[:2], got[:2]):
+        assert np.isnan(b[~got[2]]).all()
+        rel = np.abs(a[both] - b[both]) / np.maximum(np.abs(a[both]), 1.0)
+        print(f"{method}: max relative difference {rel.max():.3g}")
+        assert rel.max() <= 1e-5
+
+
+def test_run_search_from_work_unit_on_card_equals_cpu(dev, tmp_path, monkeypatch):
+    """run_search_from_work_unit on the card against device="cpu" on a small
+    reprojected WorkUnit: the same rows and sky positions. Both runs search
+    the CPU build's planes (K1's CPU twin may round an ulp or two away from
+    K1), handed over where the runner builds its StackSearch."""
+    import kbmod_tpu_torch.run_search as run_search
+    from kbmod_tpu_torch.configuration import SearchConfiguration
+    from kbmod_tpu_torch.fake_data.fake_data_creator import FakeDataSet, create_fake_times
+    from kbmod_tpu_torch.ops.psi_phi import psi_phi_array_from_numpy
+    from kbmod_tpu_torch.reprojection import reproject_work_unit
+    from kbmod_tpu_torch.search import StackSearch, Trajectory
+    from kbmod_tpu_torch.wcs_utils import make_fake_wcs
+
+    times = create_fake_times(10, t0=57130.2, obs_per_day=2, intra_night_gap=0.05)
+    ds = FakeDataSet(96, 80, times, psf_val=1.2, mask_fraction=0.03, use_seed=17)
+    ds.insert_object(Trajectory(x=40, y=33, vx=4.0, vy=-1.5, flux=250.0))
+    work = ds.get_work_unit(SearchConfiguration(dict(
+        generator_config={"name": "KBMODV1SearchConfig", "v_arr": [2.0, 6.0, 7], "ang_arr": [0.6, 0.6, 7]},
+        num_obs=5, lh_level=3.0, near_dup_thresh=3, cluster_eps=1.5, coadds=["mean"], save_config=False)))
+    for i in range(len(times)):
+        work.org_img_meta["per_image_wcs"][i] = make_fake_wcs(200.0, -7.0, 80, 96, 1.0 / 3600.0)
+    common = make_fake_wcs(200.0, -7.0, 80, 96, 1.0 / 3600.0)
+    common.crpix = common.crpix + np.array([0.3, 0.2])
+    cpu_work = reproject_work_unit(work, common, device="cpu")
+    st = cpu_work.im_stack
+    cpu = StackSearch(st.sci, st.var, st.psfs, st.zeroed_times, -1, device="cpu").psi_phi_array
+    planes = (cpu.psi.numpy(), cpu.phi.numpy(), cpu.valid.numpy(), cpu.times, cpu.meta)
+
+    class HandedOver(StackSearch):
+        def __init__(self, *args, device=None):
+            super().__init__(*args, device=device)
+            self.psi_phi_array = psi_phi_array_from_numpy(*planes, device=self.device)
+
+    monkeypatch.setattr(run_search, "StackSearch", HandedOver)
+    tables = []
+    for where in (dev, "cpu"):
+        wu = reproject_work_unit(work, common, device=where)
+        tables.append(run_search.SearchRunner(device=where).run_search_from_work_unit(wu))
+    got, ref = tables
+    assert len(got) == len(ref) > 0
+    for k in ("x", "y", "vx", "vy", "obs_count", "likelihood", "flux", "pred_x", "pred_y", "global_ra",
+              "global_dec", "img_ra", "img_dec"):
+        np.testing.assert_array_equal(got[k], ref[k], err_msg=k)

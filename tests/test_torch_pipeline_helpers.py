@@ -57,14 +57,28 @@ def test_generators_match(name):
 
 
 def test_generator_registry_and_work_unit_deferred():
+    """The registry, and the ecliptic angle a generator takes from a
+    WorkUnit's WCS (no longer deferred), equal to the JAX package's."""
+    from kbmod_tpu.wcs_utils import make_fake_wcs as j_make_fake_wcs
+    from kbmod_tpu.work_unit import WorkUnit as JWorkUnit
+    from kbmod_tpu_torch.wcs_utils import make_fake_wcs
+    from kbmod_tpu_torch.work_unit import WorkUnit
+
     assert set(jgen.TrajectoryGenerator.generators) <= set(tgen.TrajectoryGenerator.generators)
     with pytest.raises(KeyError):
         tgen.create_trajectory_generator({"name": "NoSuchSearch"})
-    with pytest.raises(NotImplementedError, match="WCS"):
-        tgen.create_trajectory_generator({"name": "EclipticCenteredSearch", "velocities": [1.0, 2.0, 2],
-                                          "angles": [0.0, 1.0, 2]}, work_unit=object())
-    with pytest.raises(NotImplementedError, match="WCS"):
-        tgen.KBMODV1SearchConfig([1.0, 2.0, 2], [0.1, 0.1, 2], work_unit=object())
+    st = ImageStackPy(times=[0.0], sci=[np.zeros((30, 40), np.float32)], var=[np.ones((30, 40), np.float32)])
+    tst = TImageStackPy(times=[0.0], sci=[np.zeros((30, 40), np.float32)], var=[np.ones((30, 40), np.float32)])
+    jwu = JWorkUnit(im_stack=st, wcs=j_make_fake_wcs(200.0, -7.0, 30, 40, 1.0 / 3600.0))
+    twu = WorkUnit(im_stack=tst, wcs=make_fake_wcs(200.0, -7.0, 30, 40, 1.0 / 3600.0))
+    cfg = {"name": "EclipticCenteredSearch", "velocities": [1.0, 2.0, 2], "angles": [0.0, 1.0, 2]}
+    got = tgen.create_trajectory_generator(cfg, work_unit=twu)
+    ref = jgen.create_trajectory_generator(cfg, work_unit=jwu)
+    assert got.ecliptic_angle == ref.ecliptic_angle != 0.0
+    np.testing.assert_array_equal(got.velocity_arrays()[0], ref.velocity_arrays()[0])
+    got = tgen.KBMODV1SearchConfig([1.0, 2.0, 2], [0.1, 0.1, 2], work_unit=twu)
+    ref = jgen.KBMODV1SearchConfig([1.0, 2.0, 2], [0.1, 0.1, 2], work_unit=jwu)
+    np.testing.assert_array_equal(got.velocity_arrays()[1], ref.velocity_arrays()[1])
     with pytest.raises(ValueError):
         tgen.KBMODV1SearchConfig([1.0, 2.0, 2], [0.1, 0.1, 2])
     assert tgen.angle_to_radians(180.0, "degree") == jgen.angle_to_radians(180.0, "degree")
@@ -158,3 +172,64 @@ def test_mjd_to_day_and_timer():
     assert timer.read() >= 0.0
     timer.stop()
     assert timer.read() == timer.read()
+
+
+def test_util_functions_match(tmp_path):
+    """The rest of util_functions against the JAX package's: time matching
+    and grouping, magnitudes, the legacy DECam loader, and the tracklet
+    tables made from a Results table with sky positions."""
+    from kbmod_tpu import util_functions as juf
+    from kbmod_tpu_torch import util_functions as tuf
+    from kbmod_tpu_torch.io import fits_io
+    from kbmod_tpu_torch.results import Results
+
+    obstimes = np.array([57000.0, 57000.0004, 57000.5, 57001.0, 57001.0009])
+    queries = [57000.0003, 57000.9995, 57002.0, 56999.0]
+    np.testing.assert_array_equal(tuf.get_matched_obstimes(obstimes, queries),
+                                  juf.get_matched_obstimes(obstimes, queries))
+    assert list(tuf.get_matched_obstimes(obstimes, queries)) == [1, 3, -1, -1]
+    st = TImageStackPy(times=list(obstimes), sci=[np.zeros((2, 2), np.float32)] * 5,
+                       var=[np.ones((2, 2), np.float32)] * 5)
+    np.testing.assert_array_equal(st.get_matched_obstimes(queries), juf.get_matched_obstimes(obstimes, queries))
+    assert tuf.unique_obstimes_and_indices(obstimes) == juf.unique_obstimes_and_indices(obstimes)
+    t_u, t_g = tuf.get_unique_obstimes(obstimes[[0, 2, 0]])
+    j_u, j_g = juf.get_unique_obstimes(obstimes[[0, 2, 0]])
+    np.testing.assert_array_equal(t_u, j_u)
+    assert [list(map(int, g)) for g in t_g] == [list(map(int, g)) for g in j_g]
+    np.testing.assert_array_equal(tuf.get_magnitude(np.array([10.0, 1e4]), 31.0),
+                                  juf.get_magnitude(np.array([10.0, 1e4]), 31.0))
+
+    rng = np.random.default_rng(4)
+    primary = fits_io.ImageHDU(name="PRIMARY")
+    primary.header["MJD"] = 57123.25
+    path = str(tmp_path / "decam.fits")
+    fits_io.write_fits(path, [primary, fits_io.ImageHDU(rng.normal(size=(6, 5)).astype(np.float32)),
+                              fits_io.ImageHDU((rng.uniform(size=(6, 5)) < 0.2).astype(np.float32)),
+                              fits_io.ImageHDU(rng.uniform(1, 2, (6, 5)).astype(np.float32))])
+    psf = np.ones((3, 3), np.float32) / 9
+    got, ref = tuf.load_deccam_layered_image(path, psf), juf.load_deccam_layered_image(path, psf)
+    assert got.time == ref.time == 57123.25
+    for name in ("sci", "var", "mask"):
+        np.testing.assert_array_equal(getattr(got, name), getattr(ref, name))
+    with pytest.raises(FileNotFoundError):
+        tuf.load_deccam_layered_image(str(tmp_path / "none.fits"), psf)
+
+    pytest.importorskip("pandas")
+    from kbmod_tpu.results import Results as JResults
+
+    arrays = dict(x=np.array([3, 8]), y=np.array([4, 1]), vx=np.array([1.0, 0.5], np.float32),
+                  vy=np.array([0.0, 2.0], np.float32), likelihood=np.array([9.0, 7.0], np.float32),
+                  flux=np.array([50.0, 20.0], np.float32), obs_count=np.array([3, 2]))
+    tables = []
+    for cls in (Results, JResults):
+        res = cls(arrays)
+        res.table["img_ra"] = np.arange(6, dtype=float).reshape(2, 3) + 200.0
+        res.table["img_dec"] = np.arange(6, dtype=float).reshape(2, 3) - 7.0
+        res.table["obs_valid"] = np.array([[True, True, True], [True, False, True]])
+        res.set_mjd_utc_mid(obstimes[:3])
+        tables.append(res)
+    for first_and_last in (False, True):
+        got = tuf.unravel_results(tables[0], batch_id=2, first_and_last=first_and_last)
+        ref = juf.unravel_results(tables[1], batch_id=2, first_and_last=first_and_last)
+        assert got.equals(ref) and len(got) == (4 if first_and_last else 5)
+        assert tuf.make_manual_tracklets(got).equals(juf.make_manual_tracklets(ref))

@@ -224,20 +224,37 @@ def test_runner_phases_and_device():
 
 def test_default_device_is_cuda_and_deferred_paths_raise():
     """Without a card the runner raises unless the CPU is asked for; the
-    WorkUnit paths wait for the port's WCS and raise."""
-    pst = _port_stack(_jax_stack(False))
+    three WorkUnit paths (no longer deferred) run on the CPU: the QA cut
+    on the WorkUnit, sky positions from its WCS, the constituent metadata
+    in the saved file."""
+    from kbmod_tpu_torch.wcs_utils import make_fake_wcs
+    from kbmod_tpu_torch.work_unit import WorkUnit
+
+    pst = _port_stack(_jax_stack(True))
     config = TSearchConfiguration(dict(BASE))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             port_run_search.SearchRunner().run_search(config, pst)
         with pytest.raises(RuntimeError, match="device='cpu'"):
             port_run_search.SearchRunner(device="cuda")
-    with pytest.raises(NotImplementedError, match="WorkUnit"):
-        port_run_search.SearchRunner(device="cpu").run_search(config, pst, workunit=object())
-    with pytest.raises(NotImplementedError, match="WorkUnit"):
-        port_run_search.SearchRunner(device="cpu").run_search_from_work_unit(object())
-    with pytest.raises(NotImplementedError, match="WorkUnit"):
-        port_run_search.append_positions_to_results(object(), None)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            port_run_search.SearchRunner().run_search_from_work_unit(WorkUnit(im_stack=pst, config=config))
+    from kbmod_tpu_torch.table import Table as TTable
+
+    work = WorkUnit(im_stack=pst, config=TSearchConfiguration(dict(BASE, max_masked_pixels=0.5)),
+                    wcs=make_fake_wcs(200.0, -7.0, 40, 48, 1.0 / 3600.0),
+                    org_image_meta=TTable({"visit": list(range(10))}))
+    got = port_run_search.SearchRunner(device="cpu").run_search(work.config, pst, workunit=work)
+    assert work.im_stack.num_times == 8 and list(work.org_img_meta["visit"]) == [0, 1, 3, 4, 5, 6, 8, 9]
+    assert got.wcs is work.wcs and got["global_ra"].shape == (len(got), 8)
+    got2 = port_run_search.SearchRunner(device="cpu").run_search_from_work_unit(work)
+    for k in KEY:
+        np.testing.assert_array_equal(got2[k], got[k])
+    got.table["global_ra"] = np.zeros_like(got["global_ra"])
+    port_run_search.append_positions_to_results(work, got)
+    np.testing.assert_array_equal(got["global_ra"], got2["global_ra"])
+    ra, dec = work.wcs.pixel_to_world_values(got["pred_x"], got["pred_y"])
+    np.testing.assert_array_equal(got["img_ra"], ra)
 
 
 def test_memory_budget_counts_what_the_port_allocates(monkeypatch):
