@@ -94,7 +94,25 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``to_fits``/``from_fits`` (every layer equal) and the ``kbmod_search``
    command in a child process on the card (its row 0 equal); a native
    RICE_1 round trip and a sharded one of four layers;
-15. each kernel's time at the main path's shapes beside its twin's, its
+15. discovery: the main stack as 64 KBMODV1 exposures on disk (four
+   pointings a whole number of pixels apart, NO_DATA borders, BAD masked
+   pixels, times through DATE-AVG), a collection from the
+   ``kbmod_build_ic`` command in a child and from ``fromDir`` here (equal
+   tables; ``toWorkUnit`` equal to the stack with the shifts undone,
+   times within 1e-8 d; ``grow_mask`` timed alone beside a file's read),
+   ``RegionSearch`` naming the 2,040-pixel patch centred on the field by
+   the object's ephemeris and the ``region_searcher`` command exporting
+   it with 64 rows, the patch's WorkUnit reprojected on the card, 16
+   objects injected (magnitudes 20.9-21.6, more than 60 pixels apart),
+   ``run_search_from_work_unit`` (K1, K2, no twin) recovering them and the
+   main object (``match_injection_results``), ``refine_all_results`` on
+   the 17 rows (one K1 build, K2 at K = 1 over 101 x 101 windows; each
+   row within 2 pixels and 1 px/d of its object, one row an object),
+   ``evaluate_around_linear_trajectory`` (K2 with K = 615, the list in
+   the maps), ``evaluate_linear_trajectory`` and
+   ``core.shift_and_stack.generate_psi_phi_images`` (K1, equal to the
+   search's plane 0), and K2 at both new shapes against its twin;
+16. each kernel's time at the main path's shapes beside its twin's, its
    bound and (K1) cuDNN's grouped convolution, as one JSON line (K2 and K5
    at both of their main-path shapes: the full frame at K = 8 and the
    sigma-G band at K = 32, each held against the twin); K2 and K3 with
@@ -103,7 +121,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``midscale_kernel`` shapes (T = 64, 2048 x 2048, C = 33,153, K = 8);
    and K6's three modes at the script's defaults and at NG = 3,015;
    launches summed over every path above;
-16. as the last line, {"ok": true, "device": {...}}.
+17. as the last line, {"ok": true, "device": {...}}.
 
 Imports nothing of the JAX package.
 """
@@ -1685,6 +1703,62 @@ def _nan_outside_allowed(layer, coords, invalid, radius, dev):
     return int((nan & ~allowed).sum()), int(nan.sum()), int((nan & edge).sum())
 
 
+def run_child(tag, args, timeout):
+    """Run ``python -m`` args as a child process that imports this
+    checkout; raise on a non-zero exit. Returns (stdout, seconds)."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [os.path.dirname(os.path.abspath(__file__)),
+                                                                     os.environ.get("PYTHONPATH")])))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", *args], capture_output=True, text=True, env=env, timeout=timeout)
+    if out.returncode != 0:
+        raise AssertionError(f"{tag}: {args[0]} exited {out.returncode}:\n{out.stderr[-4000:]}")
+    return out.stdout, time.perf_counter() - t0
+
+
+def reproject_timed(work, common, dev):
+    """``reproject_work_unit`` on the card (adaptive, frame "original") with
+    the host coordinates and ``resample_layer`` timed apart: (the
+    reprojected WorkUnit, the whole call's seconds, {"coords": s,
+    "resample": s} summed over the layers)."""
+    from kbmod_tpu_torch import reprojection
+
+    spent = {"coords": 0.0, "resample": 0.0}
+    real_coords, real_resample = reprojection.compute_source_coordinates, reprojection.resample_layer
+
+    def timed(key, fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            spent[key] += time.perf_counter() - t0
+            return out
+        return call
+
+    reprojection.compute_source_coordinates = timed("coords", real_coords)
+    reprojection.resample_layer = timed("resample", real_resample)
+    try:
+        t0 = time.perf_counter()
+        reproj = reprojection.reproject_work_unit(work, common, frame="original", device=dev)
+        whole = time.perf_counter() - t0
+    finally:
+        reprojection.compute_source_coordinates, reprojection.resample_layer = real_coords, real_resample
+    return reproj, whole, spent
+
+
+def card_resample_ms(sci, var, coords, radius, dev):
+    """The card's adaptive resampling alone of one layer's two planes: the
+    median of 3 runs by CUDA events."""
+    from kbmod_tpu_torch.ops import reproject
+
+    ok = np.isfinite(sci) & np.isfinite(var)
+    planes = torch.as_tensor(np.stack([np.where(ok, sci, 0), np.where(ok, var, 0)]).astype(np.float32), device=dev)
+    val = torch.as_tensor(ok.astype(np.float32), device=dev)
+    cy, cx = (torch.as_tensor(np.asarray(c, np.float32), device=dev) for c in coords)
+    sigma = reproject.DEFAULT_KERNEL_WIDTH / (2.0 * np.sqrt(2.0 * np.log(2.0)))
+    trunc = 0.5 * reproject.DEFAULT_KERNEL_WIDTH * reproject.DEFAULT_SAMPLE_REGION_WIDTH
+    return event_ms(lambda: reproject._adaptive_resample(planes, val, cy, cx, radius, sigma * sigma,
+                                                         trunc * trunc, False), 3)
+
+
 def workunit_path(stack, obj, card, dev):
     """The WorkUnit path at full width: reproject the main stack's 64 layers
     on the card onto a common WCS, search the result with
@@ -1710,26 +1784,8 @@ def workunit_path(stack, obj, card, dev):
 
     # 1-2. Reprojection on the card, the host coordinates and the card's
     # resampling timed apart.
-    spent = {"coords": 0.0, "resample": 0.0}
-    real_coords, real_resample = reprojection.compute_source_coordinates, reprojection.resample_layer
-
-    def timed(key, fn):
-        def call(*args, **kwargs):
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            spent[key] += time.perf_counter() - t0
-            return out
-        return call
-
-    reprojection.compute_source_coordinates = timed("coords", real_coords)
-    reprojection.resample_layer = timed("resample", real_resample)
-    try:
-        t0 = time.perf_counter()
-        reproj = reprojection.reproject_work_unit(work, common, frame="original", device=dev)
-        whole = time.perf_counter() - t0
-    finally:
-        reprojection.compute_source_coordinates, reprojection.resample_layer = real_coords, real_resample
-    coords = real_coords(img_wcs, common, (H, W))
+    reproj, whole, spent = reproject_timed(work, common, dev)
+    coords = reprojection.compute_source_coordinates(img_wcs, common, (H, W))
     radius = reproject._stencil_radius(coords, 0.5 * reproject.DEFAULT_KERNEL_WIDTH
                                        * reproject.DEFAULT_SAMPLE_REGION_WIDTH)
     bad = nan_total = nan_edge = 0
@@ -1737,17 +1793,7 @@ def workunit_path(stack, obj, card, dev):
         invalid = ~(np.isfinite(stack.sci[t]) & np.isfinite(stack.var[t]))
         n_bad, n_nan, n_edge = _nan_outside_allowed(reproj.im_stack.sci[t], coords, invalid, radius, dev)
         bad, nan_total, nan_edge = bad + n_bad, nan_total + n_nan, nan_edge + n_edge
-    # The card's resampling alone, one layer's two planes, CUDA events.
-    ok = np.isfinite(stack.sci[0]) & np.isfinite(stack.var[0])
-    planes = torch.as_tensor(np.stack([np.where(ok, stack.sci[0], 0), np.where(ok, stack.var[0], 0)])
-                             .astype(np.float32), device=dev)
-    val = torch.as_tensor(ok.astype(np.float32), device=dev)
-    cy, cx = (torch.as_tensor(np.asarray(c, np.float32), device=dev) for c in coords)
-    sigma = reproject.DEFAULT_KERNEL_WIDTH / (2.0 * np.sqrt(2.0 * np.log(2.0)))
-    trunc = 0.5 * reproject.DEFAULT_KERNEL_WIDTH * reproject.DEFAULT_SAMPLE_REGION_WIDTH
-    device_ms = event_ms(lambda: reproject._adaptive_resample(planes, val, cy, cx, radius, sigma * sigma,
-                                                              trunc * trunc, False), 3)
-    del planes, val, cy, cx
+    device_ms = card_resample_ms(stack.sci[0], stack.var[0], coords, radius, dev)
     log(f"workunit: reprojected {T} layers of {H} x {W} on the card (adaptive, stencil radius {radius}) in "
         f"{whole:.2f} s: host coordinates {spent['coords'] / T * 1e3:.1f} ms a layer, resample_layer (host to "
         f"card, resampling, back; synchronized) {spent['resample'] / T * 1e3:.1f} ms a layer, the card's "
@@ -1813,19 +1859,12 @@ def workunit_path(stack, obj, card, dev):
         t_read = time.perf_counter() - t0
         same = all(np.array_equal(back.im_stack.sci[t], reproj.im_stack.sci[t], equal_nan=True) for t in range(T))
         out = os.path.join(tmp, "res.ecsv")
-        env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [os.path.dirname(os.path.abspath(__file__)),
-                                                                         os.environ.get("PYTHONPATH")])))
-        t0 = time.perf_counter()
-        child = subprocess.run([sys.executable, "-m", "kbmod_tpu_torch.cmdline.kbmod_search", "--workunit", path,
-                                "--outfile", out], capture_output=True, text=True, env=env,
-                               timeout=WU_CHILD_TIMEOUT_S)
-        t_child = time.perf_counter() - t0
-        if child.returncode != 0:
-            raise AssertionError(f"workunit: kbmod_search exited {child.returncode}:\n{child.stderr[-4000:]}")
+        stdout, t_child = run_child("workunit", ["kbmod_tpu_torch.cmdline.kbmod_search", "--workunit", path,
+                                                 "--outfile", out], WU_CHILD_TIMEOUT_S)
         res = Results.read_table(out)
         log(f"workunit: to_fits of {T} layers {t_write:.2f} s ({os.path.getsize(path) / 1e6:.1f} MB, GZIP_1), "
             f"from_fits {t_read:.2f} s (layers equal: {same}); kbmod_search child {t_child:.2f} s: "
-            f"{child.stdout.strip()}; its row 0 (x={res['x'][0]}, y={res['y'][0]}, vx={res['vx'][0]:.4f}, "
+            f"{stdout.strip()}; its row 0 (x={res['x'][0]}, y={res['y'][0]}, vx={res['vx'][0]:.4f}, "
             f"vy={res['vy'][0]:.4f}, lh={res['likelihood'][0]:.4f})")
         if not same:
             raise AssertionError("workunit: the WorkUnit file does not read back with the same layers")
@@ -1883,6 +1922,480 @@ def workunit_path(stack, obj, card, dev):
         if not sh_same:
             raise AssertionError("workunit: the sharded round trip changed the layers")
     return launches
+
+
+# ----------------------------------------------------------------------
+# The discovery path: raw exposures to injected objects recovered and refined
+# ----------------------------------------------------------------------
+
+# Visit i of the discovery phase points at DISC_POINTINGS[i % 4]: whole-pixel
+# offsets of the main stack's plane, so every file images the same sky.
+DISC_POINTINGS = ((0, 0), (24, 17), (-19, 31), (13, -22))
+DISC_EXPREQ = 30.0
+# Rubin mask bits of KBMODV1Config.bit_flag_map.
+DISC_BAD, DISC_NO_DATA = 2**0, 2**8
+# The standardizers' settings: no grown masks (the 1% scattered masked
+# pixels grown by 10 x 10 would mask most of each image), the stack's PSF.
+DISC_STD_CONFIG = {"grow_mask": False, "psf_std": 1.4}
+# A full-width patch: 8 pixels narrower than the exposures at 0.2 arcsec
+# pixels (6.8 arcmin, 2,040 pixels a side for the main stack), in a 3 x 3
+# grid whose middle patch is centred on the field.
+DISC_PIXEL_SCALE = 0.2
+DISC_PATCH_MARGIN_PX = 8
+# The region_searcher command takes whole arcminutes on a whole-sky grid:
+# 90 arcmin puts the field well inside one patch (ra 199.5-201, dec -7.5 to -6).
+DISC_CLI_PATCH_ARCMIN = 90
+# Injected objects: 16 of magnitude 20.9-21.6 at zero point 27 (flux
+# 150-290), drawn from a seeded catalog of DISC_POOL moving retrograde
+# along the ecliptic, which in this WCS lies inside the search grid's
+# angles; kept in catalog order while the path stays DISC_EDGE_PX inside
+# the patch, its pixel velocity inside the grid and every position more
+# than DISC_MIN_SEP_PX from the objects kept before and the main object.
+DISC_N_INJECT = 16
+DISC_POOL = 400
+DISC_SEED = 20261017
+DISC_EDGE_PX = 40
+DISC_MIN_SEP_PX = 60
+DISC_CHILD_TIMEOUT_S = 300
+
+
+def _disc_covered(px, py, H, W):
+    """(y0, y1, x0, x1): the part of a file at pointing (px, py) that the
+    main stack's plane covers (file pixel (x, y) is plane pixel
+    (x + px, y + py))."""
+    return max(0, -py), min(H, H - py), max(0, -px), min(W, W - px)
+
+
+def write_exposures(stack, base_wcs, directory):
+    """The main stack as 64 KBMODV1-style files (PRIMARY with the Rubin
+    keys, IMAGE, MASK and VARIANCE, each with its TAN WCS), uncompressed.
+    DATE-AVG is the visit's time less KBMODV1's offset to mid-exposure,
+    the uncovered border is NO_DATA and the stack's masked pixels BAD.
+    Returns the paths."""
+    from kbmod_tpu_torch.geom.time_utils import mjd_to_datetime
+    from kbmod_tpu_torch.geom.wcs import WCS
+    from kbmod_tpu_torch.io import fits_io
+
+    T, H, W = len(stack.sci), stack.height, stack.width
+    paths = []
+    for i in range(T):
+        px, py = DISC_POINTINGS[i % len(DISC_POINTINGS)]
+        y0, y1, x0, x1 = _disc_covered(px, py, H, W)
+        window = (slice(y0 + py, y1 + py), slice(x0 + px, x1 + px))
+        sci, var = stack.sci[i][window], stack.var[i][window]
+        good = np.isfinite(sci) & np.isfinite(var)
+        image = np.zeros((H, W), np.float32)
+        variance = np.ones((H, W), np.float32)
+        mask = np.full((H, W), DISC_NO_DATA, np.int32)
+        image[y0:y1, x0:x1] = np.where(good, sci, 0.0)
+        variance[y0:y1, x0:x1] = np.where(good, var, 1.0)
+        mask[y0:y1, x0:x1] = np.where(good, 0, DISC_BAD)
+        wcs_header = WCS(base_wcs.crpix - np.array([px, py], dtype=float), base_wcs.crval, base_wcs.cd,
+                         shape=(H, W)).to_header()
+        start = float(stack.times[i]) - (DISC_EXPREQ + 0.5) / 2.0 / 86400.0
+        primary = fits_io.ImageHDU(name="PRIMARY")
+        primary.header.update({
+            "ZTENSION": "IMAGE", "ZPCOUNT": 0, "ZGCOUNT": 1, "CCDNUM": 42,
+            "DATE-AVG": mjd_to_datetime(start).strftime("%Y-%m-%dT%H:%M:%S.%f"), "EXPREQ": DISC_EXPREQ,
+            "OBS-LONG": -70.7494, "OBS-LAT": -30.2444, "OBS-ELEV": 2650.0, "FILTER": "r", "EXPID": 1000 + i,
+        })
+        hdus = [primary]
+        for data, name in ((image, "IMAGE"), (mask, "MASK"), (variance, "VARIANCE")):
+            hdu = fits_io.ImageHDU(data, name=name)
+            hdu.header.update(wcs_header)
+            hdus.append(hdu)
+        path = os.path.join(directory, f"visit_{i:03d}.fits")
+        fits_io.write_fits(path, hdus)
+        paths.append(path)
+    return paths
+
+
+def _tables_equal(a, b):
+    """Equal column names, rows and values (objects compared as strings,
+    floats with NaN equal to NaN)."""
+    if list(a.colnames) != list(b.colnames) or len(a) != len(b):
+        return False
+    for col in a.colnames:
+        x, y = np.asarray(a[col]), np.asarray(b[col])
+        if x.dtype == object or y.dtype == object or x.dtype.kind in "US":
+            if [str(v) for v in x] != [str(v) for v in y]:
+                return False
+        elif not np.array_equal(x, y, equal_nan=x.dtype.kind == "f"):
+            return False
+    return True
+
+
+def _touched_pixels(dxs, dys, bounds, T, H, W):
+    """Distinct in-image pixels the search window reads over all candidates
+    and times: per time, the union of the window shifted by every
+    candidate's offset (counted with a 2-D difference array on the card)."""
+    SH, SW = bounds["y_max"] - bounds["y_min"], bounds["x_max"] - bounds["x_min"]
+    total = 0
+    for t in range(T):
+        y0 = (dys[:, t] + bounds["y_min"]).clamp(0, H)
+        y1 = (dys[:, t] + bounds["y_min"] + SH).clamp(0, H)
+        x0 = (dxs[:, t] + bounds["x_min"]).clamp(0, W)
+        x1 = (dxs[:, t] + bounds["x_min"] + SW).clamp(0, W)
+        keep = (y1 > y0) & (x1 > x0)
+        diff = torch.zeros((H + 1, W + 1), dtype=torch.int32, device=dxs.device)
+        one = torch.ones(int(keep.sum()), dtype=torch.int32, device=dxs.device)
+        for yy, xx, sign in ((y0, x0, 1), (y0, x1, -1), (y1, x0, -1), (y1, x1, 1)):
+            diff.index_put_((yy[keep].long(), xx[keep].long()), sign * one, accumulate=True)
+        total += int((diff.cumsum(0).cumsum(1)[:H, :W] > 0).sum())
+    return total
+
+
+def time_k2_window(tag, planes, times, cands, bounds, K, min_obs, min_lh, gate_min_lh, dev):
+    """K2 at one of the explorer's shapes on its planes: held to the twin
+    once, bit for bit, timed (median of 3 by CUDA events), with the bound
+    of the work: the distinct pixels the window reads (9 bytes each), the
+    offsets and the (K, SH, SW) outputs; 3 operations a valid sample and
+    2 + K a (pixel, candidate)."""
+    from kbmod_tpu_torch.ops.search import trajectory_offsets
+    from kbmod_tpu_torch.ops.search_kernel import search_topk, search_topk_shift
+
+    psi, phi, valid = planes
+    T, H, W = psi.shape
+    SH, SW = bounds["y_max"] - bounds["y_min"], bounds["x_max"] - bounds["x_min"]
+    vxs = np.array([c.vx for c in cands], np.float32)
+    vys = np.array([c.vy for c in cands], np.float32)
+    dxs, dys = (torch.as_tensor(a, device=dev) for a in trajectory_offsets(vxs, vys, times))
+    C = len(cands)
+    kw = dict(k_results=K, gate_min_lh=gate_min_lh, **bounds)
+    args = (psi, phi, valid, dxs, dys, float(min_obs), float(min_lh))
+    got = search_topk(*args, **kw)
+    t0 = time.perf_counter()
+    ref = search_topk_shift(*args, **kw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err, nonzero = _assert_k2_equal(f"{tag} {SH}x{SW} K={K}", got, ref)
+    ms = event_ms(lambda: search_topk(*args, **kw), 3)
+    touched = _touched_pixels(dxs, dys, bounds, T, H, W)
+    n_samples = _valid_samples(valid, dxs + bounds["x_min"], dys + bounds["y_min"], SH, SW)
+    nbytes = 9 * touched + 8 * C * T + 8 * K * SH * SW
+    nops = 3 * n_samples + (2 + K) * SH * SW * C
+    bound_ms, bound_by = bound(nbytes, nops)
+    log(f"K2 {tag} (T={T}, {SH}x{SW} window, C={C}, K={K}): {ms:.4f} ms, twin {plain_ms:.1f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}; {touched} pixels read, {n_samples} valid samples), bit-equal to the "
+        f"twin (max |dlh| {err:.3g}, {nonzero} slots differ); clocks {clocks()}")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, err=err)
+
+
+def discovery_path(stack, obj, card, dev):
+    """The discovery path at full width and depth, as a survey user drives
+    it: the main stack as 64 raw exposures on disk (four pointings), a
+    collection (``kbmod_build_ic`` in a child and ``fromDir`` here), a
+    region search naming the field's patch (and ``region_searcher`` in a
+    child), the patch's WorkUnit reprojected on the card, 16 objects
+    injected, the search (K1, K2) recovering them and the main object, and
+    the explorer refining them (K2 at K = 1 over 101 x 101 windows, one K1
+    build) and sweeping a pencil around row 0 (K2 with the list in the
+    maps). Returns the launches of every driven call."""
+    import tempfile
+
+    from kbmod_tpu_torch.configuration import SearchConfiguration
+    from kbmod_tpu_torch.core.shift_and_stack import generate_psi_phi_images
+    from kbmod_tpu_torch.image_collection import ImageCollection
+    from kbmod_tpu_torch.injection import generate_injection_catalog, inject_sources_into_work_unit
+    from kbmod_tpu_torch.injection import match_injection_results
+    from kbmod_tpu_torch.io import fits_io
+    from kbmod_tpu_torch.ops import reproject
+    from kbmod_tpu_torch.region_search import Ephems, RegionSearch
+    from kbmod_tpu_torch.run_search import SearchRunner
+    from kbmod_tpu_torch.standardizers import KBMODV1
+    from kbmod_tpu_torch.table import Table, vstack
+    from kbmod_tpu_torch.trajectory_explorer import TrajectoryExplorer, refine_all_results
+    from kbmod_tpu_torch.trajectory_generator import PencilSearch, VelocityGridSearch
+    from kbmod_tpu_torch.wcs_utils import make_fake_wcs
+
+    T, H, W = len(stack.sci), stack.height, stack.width
+    base = make_fake_wcs(*WU_CENTER, H, W, WU_DEG_PP)
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # 1. Raw exposures on disk.
+        exp_dir = os.path.join(tmp, "exposures")
+        os.makedirs(exp_dir)
+        t0 = time.perf_counter()
+        paths = write_exposures(stack, base, exp_dir)
+        t_write = time.perf_counter() - t0
+        size = sum(os.path.getsize(p) for p in paths)
+        log(f"discovery: wrote {T} KBMODV1 exposures of {H} x {W} ({size / 1e9:.2f} GB, uncompressed) in "
+            f"{t_write:.2f} s")
+
+        # 2. The collection: the command in a child, fromDir here.
+        ic_file = os.path.join(tmp, "survey.ecsv")
+        out, t_child = run_child("discovery", ["kbmod_tpu_torch.cmdline.kbmod_build_ic", "--dir", exp_dir,
+                                               "--outfile", ic_file], DISC_CHILD_TIMEOUT_S)
+        t0 = time.perf_counter()
+        ic = ImageCollection.fromDir(exp_dir, config=DISC_STD_CONFIG)
+        t_std = time.perf_counter() - t0
+        own_file = os.path.join(tmp, "in_process.ecsv")
+        ic.write(own_file)
+        child_ic = ImageCollection.read(ic_file)
+        same_table = _tables_equal(child_ic.data, ImageCollection.read(own_file).data)
+        with open(ic_file, "rb") as a, open(own_file, "rb") as b:
+            same_bytes = a.read() == b.read()
+        log(f"discovery: kbmod_build_ic child {t_child:.2f} s ({out.strip()}); fromDir {t_std:.2f} s, {len(ic)} "
+            f"rows ({t_std / T * 1e3:.1f} ms an exposure); the child's table equal: {same_table}, its file "
+            f"byte-equal: {same_bytes}")
+        if len(ic) != T or not same_table:
+            raise AssertionError("discovery: the child's collection differs from fromDir's")
+
+        config = SearchConfiguration(dict(generator_config=PIPELINE_GENERATOR))
+        t0 = time.perf_counter()
+        wu0 = ic.toWorkUnit(config)
+        t_wu = time.perf_counter() - t0
+        times = np.asarray(wu0.im_stack.times)
+        dt_err = float(np.max(np.abs(times - np.asarray(stack.times))))
+        mismatched = 0
+        for i in range(T):
+            px, py = DISC_POINTINGS[i % len(DISC_POINTINGS)]
+            y0, y1, x0, x1 = _disc_covered(px, py, H, W)
+            window = (slice(y0 + py, y1 + py), slice(x0 + px, x1 + px))
+            good = np.isfinite(stack.sci[i][window]) & np.isfinite(stack.var[i][window])
+            for got_plane, want_plane in ((wu0.im_stack.sci[i], stack.sci[i]), (wu0.im_stack.var[i], stack.var[i])):
+                want = np.full((H, W), np.nan, np.float32)
+                want[y0:y1, x0:x1] = np.where(good, want_plane[window], np.nan)
+                mismatched += int((~((got_plane == want) | (np.isnan(got_plane) & np.isnan(want)))).sum())
+        psf_same = all(np.array_equal(wu0.im_stack.psfs[i], stack.psfs[i]) for i in range(T))
+        log(f"discovery: toWorkUnit {t_wu:.2f} s ({t_wu / T * 1e3:.1f} ms a layer); layers against the stack "
+            f"with the shift undone: {mismatched} pixels differ; times within {dt_err:.3g} d; PSFs equal: "
+            f"{psf_same}")
+        if mismatched or dt_err > 1e-8:
+            raise AssertionError(f"discovery: toWorkUnit differs from the stack ({mismatched} pixels, "
+                                 f"times {dt_err:.3g} d)")
+        del wu0
+        # grow_mask alone on one exposure, beside the read of that file
+        # (scipy.signal imported first, so that its import is not timed).
+        import scipy.signal  # noqa: F401
+
+        t0 = time.perf_counter()
+        fits_io.read_fits(paths[1])
+        t_read = time.perf_counter() - t0
+        grown_std = KBMODV1(paths[1])
+        t0 = time.perf_counter()
+        grown = grown_std._standardizeMask()
+        t_grow = time.perf_counter() - t0
+        plain = KBMODV1(paths[1], config=DISC_STD_CONFIG)._standardizeMask()
+        log(f"discovery: grow_mask alone on one {H} x {W} exposure {t_grow * 1e3:.1f} ms (scipy convolve2d with "
+            f"a 10 x 10 box; {plain.mean():.2%} of pixels masked before, {grown.mean():.2%} after), the file's "
+            f"read {t_read * 1e3:.1f} ms")
+        del grown_std, grown, plain
+
+        # 3. The region search.
+        t0 = time.perf_counter()
+        rs = RegionSearch(ic)
+        side_px = H - DISC_PATCH_MARGIN_PX
+        side = side_px * DISC_PIXEL_SCALE / 3600.0
+        ra_c, dec_c = WU_CENTER
+        patches = rs.generate_patches(side * 60.0, pixel_scale=DISC_PIXEL_SCALE,
+                                      ra_range=(ra_c - 1.5 * side, ra_c + 1.5 * side),
+                                      dec_range=(dec_c - 1.5 * side, dec_c + 1.5 * side))
+        patch = min(patches, key=lambda p: np.hypot(p.ra - ra_c, p.dec - dec_c))
+        matches = rs.match_ic_to_patches()
+        path_ra, path_dec = base.pixel_to_world_values(obj.x + obj.vx * (times - times[0]),
+                                                       obj.y + obj.vy * (times - times[0]))
+        ephems = Ephems(Table({"ra": path_ra, "dec": path_dec, "mjd": times}), "ra", "dec", "mjd")
+        found = rs.search_patches_by_ephems(ephems)
+        ic_patch = rs.get_image_collection_from_patch(patch)
+        t_rs = time.perf_counter() - t0
+        log(f"discovery: RegionSearch {len(patches)} patches of {patch.width_px} x {patch.height_px} pixels, "
+            f"patch {patch.id} at ({patch.ra:.9f}, {patch.dec:.9f}); chips matched {{patch: rows}} "
+            f"{ {k: len(v) for k, v in matches.items()} }; the object's ephemeris names {found}; the patch's "
+            f"collection {len(ic_patch)} rows; {t_rs * 1e3:.1f} ms on the host")
+        if (patch.width_px, patch.height_px) != (side_px, side_px) or abs(patch.ra - ra_c) > 1e-9 \
+                or abs(patch.dec - dec_c) > 1e-9:
+            raise AssertionError(f"discovery: the middle patch {patch} is not a {side_px}-pixel patch on the field")
+        if found != [patch.id] or len(ic_patch) != T or len(matches.get(patch.id, [])) != T:
+            raise AssertionError(f"discovery: the region search did not name patch {patch.id} with every row")
+        out_dir = os.path.join(tmp, "patches")
+        out, t_rs_child = run_child("discovery", [
+            "kbmod_tpu_torch.cmdline.region_searcher", "--ic-path", ic_file, "--guess-distances", "0.0",
+            "--patch-side-len", str(DISC_CLI_PATCH_ARCMIN), "--pixel-scale", str(DISC_PIXEL_SCALE),
+            "--out-dir", out_dir], DISC_CHILD_TIMEOUT_S)
+        tag_dir = os.path.join(out_dir, f"0.0_{DISC_CLI_PATCH_ARCMIN}X{DISC_CLI_PATCH_ARCMIN}")
+        exported = sorted(f for f in os.listdir(tag_dir) if f.endswith(".collection"))
+        sub = ImageCollection.read(os.path.join(tag_dir, exported[0])) if len(exported) == 1 else None
+        log(f"discovery: region_searcher child ({DISC_CLI_PATCH_ARCMIN} arcmin patches over the sky) "
+            f"{t_rs_child:.2f} s: exported {exported}, "
+            f"{len(sub) if sub is not None else 'n/a'} rows, patch centre "
+            f"{sub.data.meta.get('patch_center') if sub is not None else 'n/a'}")
+        if sub is None or len(sub) != T:
+            raise AssertionError(f"discovery: region_searcher exported {exported}, not one patch of {T} rows")
+        lo = np.asarray(sub.data.meta["patch_center"]) - 0.5 * np.asarray(sub.data.meta["patch_size_deg"])
+        hi = lo + np.asarray(sub.data.meta["patch_size_deg"])
+        if not (lo[0] < ra_c < hi[0] and lo[1] < dec_c < hi[1]):
+            raise AssertionError("discovery: region_searcher's patch does not hold the field")
+        t0 = time.perf_counter()
+        work = ic_patch.toWorkUnit(config)
+        t_wu_patch = time.perf_counter() - t0
+        del ic, ic_patch, rs, child_ic, sub
+
+    # 4. The patch's WorkUnit reprojected on the card, then the injection.
+    pw = patch.to_wcs()
+    reproj, whole, spent = reproject_timed(work, pw, dev)
+    PH, PW = pw.array_shape
+    coords = reproject.compute_source_coordinates(work.get_wcs(0), pw, (PH, PW))
+    radius = reproject._stencil_radius(coords, 0.5 * reproject.DEFAULT_KERNEL_WIDTH
+                                       * reproject.DEFAULT_SAMPLE_REGION_WIDTH)
+    device_ms = card_resample_ms(work.im_stack.sci[0], work.im_stack.var[0], coords, radius, dev)
+    del work, coords
+    nan_frac = float(np.mean([np.isnan(s).mean() for s in reproj.im_stack.sci]))
+    log(f"discovery: the patch's toWorkUnit {t_wu_patch:.2f} s; reprojected {T} layers onto the patch's "
+        f"{PH} x {PW} WCS on the card in {whole:.2f} s: host coordinates {spent['coords'] / T * 1e3:.1f} ms a "
+        f"layer, resample_layer {spent['resample'] / T * 1e3:.1f} ms a layer, the card's resampling alone "
+        f"{device_ms:.2f} ms a layer (CUDA events); {nan_frac:.3%} of pixels NaN; {card}")
+
+    zeroed = times - times[0]
+    t_mid = float(np.mean(zeroed))
+
+    def to_patch(x, y):
+        return pw.world_to_pixel_values(*base.pixel_to_world_values(x, y))
+
+    main_px = np.stack(to_patch(obj.x + obj.vx * zeroed, obj.y + obj.vy * zeroed), axis=1)
+    t0 = time.perf_counter()
+    spread = 0.45 * PW * DISC_PIXEL_SCALE / 3600.0
+    pool = generate_injection_catalog(DISC_POOL, ra_c, dec_c, float(times[0]), ra_spread_deg=spread,
+                                      dec_spread_deg=spread, vel_min=-8.6, vel_max=-1.2, mag_min=20.9, mag_max=21.6,
+                                      angle_jitter=0.1, seed=DISC_SEED)
+    ra0, dec0 = np.asarray(pool["ra"]), np.asarray(pool["dec"])
+    vra, vdec = np.asarray(pool["v_ra"]), np.asarray(pool["v_dec"])
+    x0, y0 = pw.world_to_pixel_values(ra0, dec0)
+    x1, y1 = pw.world_to_pixel_values(ra0 + vra, dec0 + vdec)
+    speed_lo, speed_hi = PIPELINE_GENERATOR["v_arr"][0] + 1.0, PIPELINE_GENERATOR["v_arr"][1] - 2.0
+    ang_hi = PIPELINE_GENERATOR["ang_arr"][1] - 0.04
+    kept_paths, chosen = [main_px], []
+    for k in range(DISC_POOL):
+        vx, vy = x1[k] - x0[k], y1[k] - y0[k]
+        path = np.stack([np.round(x0[k]) + vx * zeroed, np.round(y0[k]) + vy * zeroed], axis=1)
+        inside = np.all((path >= DISC_EDGE_PX) & (path < np.array([PW, PH]) - DISC_EDGE_PX))
+        in_grid = speed_lo <= np.hypot(vx, vy) <= speed_hi and abs(np.arctan2(vy, vx)) <= ang_hi
+        apart = all(np.min(np.hypot(*(path - other).T)) > DISC_MIN_SEP_PX for other in kept_paths)
+        if inside and in_grid and apart:
+            chosen.append(k)
+            kept_paths.append(path)
+            if len(chosen) == DISC_N_INJECT:
+                break
+    if len(chosen) < DISC_N_INJECT:
+        raise AssertionError(f"discovery: only {len(chosen)} of {DISC_POOL} catalog objects fit the patch")
+    catalog = pool[chosen]
+    catalog["object_id"] = np.arange(DISC_N_INJECT)
+    injected = inject_sources_into_work_unit(reproj, catalog)
+    t_inject = time.perf_counter() - t0
+    # The main object as a catalog row, for the same matching.
+    m_ra, m_dec = base.pixel_to_world_values(float(obj.x), float(obj.y))
+    m_ra1, m_dec1 = base.pixel_to_world_values(float(obj.x + obj.vx), float(obj.y + obj.vy))
+    main_row = Table({"object_id": np.array([DISC_N_INJECT]), "ra": np.array([float(m_ra)]),
+                      "dec": np.array([float(m_dec)]), "v_ra": np.array([float(m_ra1 - m_ra)]),
+                      "v_dec": np.array([float(m_dec1 - m_dec)]),
+                      "mag": np.array([27.0 - 2.5 * np.log10(obj.flux)]), "mjd0": np.array([float(times[0])])})
+    full_cat = vstack([catalog, main_row])
+    truth = [(float(t.x), float(t.y), float(t.vx), float(t.vy)) for t in injected]
+    m_v = (main_px[-1] - main_px[0]) / zeroed[-1]
+    truth.append((float(main_px[0, 0]), float(main_px[0, 1]), float(m_v[0]), float(m_v[1])))
+    log(f"discovery: injected {len(injected)} objects (fluxes {min(t.flux for t in injected):.1f}-"
+        f"{max(t.flux for t in injected):.1f}, pixel speeds "
+        f"{min(np.hypot(t.vx, t.vy) for t in injected):.2f}-{max(np.hypot(t.vx, t.vy) for t in injected):.2f} "
+        f"px/d) from {chosen[-1] + 1} catalog draws in {t_inject * 1e3:.1f} ms on the host")
+
+    # 5. The search and the recovery.
+    runner = SearchRunner()
+    keep, got, wall = drive("discovery: run_search_from_work_unit (K1, K2)", ("psi_phi_conv", "search_topk"),
+                            lambda: runner.run_search_from_work_unit(reproj))
+    _add(launches, got)
+    walls = {k: (v[1] - v[0]) * 1e3 for k, v in runner.phase_times.items()}
+    t0 = time.perf_counter()
+    match = match_injection_results(full_cat, keep, reproj)
+    t_match = time.perf_counter() - t0
+    recovered = int(np.sum(np.asarray(match["recovered"])))
+    log(f"discovery: search phase walls (ms): " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
+        + f"; {len(keep)} rows; recovered {recovered} of {len(full_cat)} (16 injected and the main object) "
+        f"within 5 pixels, matched rows {list(np.asarray(match['match_idx']))}; match_injection_results "
+        f"{t_match * 1e3:.1f} ms; {card}")
+    if recovered != len(full_cat):
+        rows = [tuple(round(float(keep[c][i]), 3) for c in ("x", "y", "vx", "vy", "likelihood", "obs_count"))
+                for i in range(min(len(keep), 20))]
+        raise AssertionError(f"discovery: recovered {recovered} of {len(full_cat)}; truth (x, y, vx, vy) "
+                             f"{[tuple(round(v, 3) for v in t) for t in truth]}; rows {rows}")
+    n_obj = len(full_cat)
+    if sorted(int(i) for i in match["match_idx"]) != list(range(n_obj)):
+        raise AssertionError(f"discovery: the objects are not the top {n_obj} rows")
+
+    # 6. The explorer on the card.
+    refined, got, w_ref = drive(f"discovery: refine_all_results on the top {n_obj} rows (K1 once, K2 at K = 1)",
+                                ("psi_phi_conv", "search_topk"),
+                                lambda: refine_all_results(keep[list(range(n_obj))], reproj.im_stack, reproj.config,
+                                                           device=dev))
+    _add(launches, got)
+    if got["psi_phi_conv"] != 1 or got["search_topk"] < n_obj:
+        raise AssertionError(f"discovery: refine_all_results launched {got}, not K1 once and K2 a row")
+    worst_pos = worst_v = 0.0
+    owners = []
+    for i in range(len(refined)):
+        r = [float(refined[c][i]) for c in ("x", "y", "vx", "vy")]
+        d = [np.hypot(r[0] + r[2] * t_mid - (tx + tvx * t_mid), r[1] + r[3] * t_mid - (ty + tvy * t_mid))
+             for tx, ty, tvx, tvy in truth]
+        k = int(np.argmin(d))
+        owners.append(k)
+        worst_pos = max(worst_pos, d[k])
+        worst_v = max(worst_v, abs(r[2] - truth[k][2]), abs(r[3] - truth[k][3]))
+    log(f"discovery: refined {len(refined)} rows in {w_ref:.1f} ms; each within {worst_pos:.3f} pixels of its "
+        f"object's path at the mean time {t_mid:.3f} d and {worst_v:.3f} px/d of its velocity per axis; "
+        f"objects {sorted(owners)}")
+    if sorted(owners) != list(range(n_obj)) or worst_pos > 2.0 or worst_v > 1.0:
+        raise AssertionError("discovery: the refined rows are not one a object within 2 pixels and 1 px/d")
+
+    explorer = TrajectoryExplorer(reproj.im_stack, reproj.config, preload_data=True, device=dev)
+    x0, y0, vx0, vy0 = (refined[c][0] for c in ("x", "y", "vx", "vy"))
+    x0, y0, vx0, vy0 = int(x0), int(y0), float(vx0), float(vy0)
+    pencil = PencilSearch(vx0, vy0)
+    around, got, w_ar = drive(f"discovery: evaluate_around_linear_trajectory on row 0 (K2, K = {len(pencil)})",
+                              ("search_topk",), lambda: explorer.evaluate_around_linear_trajectory(x0, y0, vx0, vy0))
+    _add(launches, got)
+    b = {c: float(around[c][0]) for c in ("x", "y", "vx", "vy")}
+    d_speed = abs(np.hypot(b["vx"], b["vy"]) - np.hypot(vx0, vy0))
+    d_ang = abs(np.arctan2(b["vy"], b["vx"]) - np.arctan2(vy0, vx0))
+    d_pos = np.hypot(b["x"] + b["vx"] * t_mid - (x0 + vx0 * t_mid), b["y"] + b["vy"] * t_mid - (y0 + vy0 * t_mid))
+    log(f"discovery: evaluate_around returned {len(around)} rows (121 x {len(pencil)}) in {w_ar:.1f} ms; best "
+        f"{b}, against row 0 ({x0}, {y0}, {vx0:.4f}, {vy0:.4f}): speed {d_speed:.4f} (step 0.5), angle "
+        f"{d_ang:.4f} (step 0.035), {d_pos:.3f} pixels apart at the mean time")
+    if len(around) != 121 * len(pencil) or d_speed > 0.5 + 1e-6 or d_ang > 0.035 + 1e-6 or d_pos > 1.5:
+        raise AssertionError("discovery: evaluate_around's best row is not row 0's trajectory within a step")
+    lin, got, w_lin = drive("discovery: evaluate_linear_trajectory on row 0", (),
+                            lambda: explorer.evaluate_linear_trajectory(x0, y0, vx0, vy0))
+    _add(launches, got)
+    cols = ("coadd_sum", "coadd_mean", "coadd_median", "sigma_g_res")
+    log(f"discovery: evaluate_linear_trajectory {w_lin:.1f} ms, lh {float(lin['likelihood'][0]):.4f}, "
+        f"columns present: {[c for c in cols if c in lin.colnames]}")
+    if any(c not in lin.colnames for c in cols) or not np.all(np.isfinite(np.asarray(lin["coadd_mean"]))):
+        raise AssertionError("discovery: evaluate_linear_trajectory lacks its coadds or sigma_g_res")
+    (psi1, phi1), got, w_sas = drive("discovery: core.shift_and_stack.generate_psi_phi_images on layer 0 (K1)",
+                                     ("psi_phi_conv",), lambda: generate_psi_phi_images(
+                                         reproj.im_stack.sci[0], reproj.im_stack.var[0], reproj.im_stack.psfs[0],
+                                         device=dev))
+    _add(launches, got)
+    planes = explorer.search.psi_phi_array.decoded_psi_phi()
+    ok0 = planes[2][0] > 0
+    same = (torch.equal(torch.isnan(psi1), ~ok0) and torch.equal(psi1[ok0], planes[0][0][ok0])
+            and torch.equal(phi1[ok0], planes[1][0][ok0]))
+    log(f"discovery: generate_psi_phi_images on layer 0 equals plane 0 of the explorer's build bit for bit: {same}")
+    if not same:
+        raise AssertionError("discovery: generate_psi_phi_images differs from the search's plane 0")
+
+    # K2 at its two new shapes, on the explorer's planes: refine's first
+    # search (pipeline row 0, its 101 x 101 window and 441 velocities) and
+    # the pencil around refined row 0.
+    cfg = reproj.config
+    r = {c: keep[c][0] for c in ("x", "y", "vx", "vy")}
+    rx, ry = int(r["x"]), int(r["y"])
+    grid = list(VelocityGridSearch(21, r["vx"] - 10.0, r["vx"] + 10.0, 21, r["vy"] - 10.0, r["vy"] + 10.0))
+    k2_refine = time_k2_window("refine", planes, explorer.search.zeroed_times, grid,
+                               dict(x_min=rx - 50, x_max=rx + 51, y_min=ry - 50, y_max=ry + 51), 1,
+                               cfg["num_obs"], cfg["lh_level"], cfg["lh_level"] > 0, dev)
+    k2_around = time_k2_window("evaluate_around", planes, explorer.search.zeroed_times, list(pencil),
+                               dict(x_min=x0 - 5, x_max=x0 + 6, y_min=y0 - 5, y_max=y0 + 6), len(pencil),
+                               1, -1e25, False, dev)
+    return launches, dict(refine=k2_refine, around=k2_around)
 
 
 # ----------------------------------------------------------------------
@@ -2217,6 +2730,7 @@ def main():
     launches_prof = profile_path(stack, obj, card)
     launches_k6 = k6_path()
     launches_wu = workunit_path(stack, obj, card, dev)
+    launches_disc, k2_disc = discovery_path(stack, obj, card, dev)
     k1 = time_k1(stack, dev)
     T, H, W = len(stack.sci), *np.asarray(stack.sci[0]).shape
     y0 = obj.y - 128
@@ -2249,6 +2763,9 @@ def main():
             f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}), library {r['library_ms']}"
             + (f", {r['evals_per_s']:.4g} evals/s" if "evals_per_s" in r else ""))
     log(f"K5 midscale through the dispatcher: {mid['ms']:.3f} ms, {mid['evals_per_s']:.4g} evals/s")
+    for name, r in (("K2 search_topk, refine (K = 1)", k2_disc["refine"]),
+                    ("K2 search_topk, evaluate_around (K in the maps)", k2_disc["around"])):
+        log(f"{name}: {r['ms']:.4f} ms, twin {r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
 
     def entry(name, src, replaces, launches, err, r):
         return dict(name=name, route="cuda", source=f"kbmod_tpu_torch/csrc/{src}",
@@ -2259,11 +2776,12 @@ def main():
 
     launches = {k: launches_f[k] + launches_q[k] + launches_p.get(k, 0) + launches_s.get(k, 0)
                 + vetting["launches"].get(k, 0) + launches_c.get(k, 0) + launches_sh.get(k, 0)
-                + launches_prof.get(k, 0) + launches_wu.get(k, 0) for k in launches_f}
+                + launches_prof.get(k, 0) + launches_wu.get(k, 0) + launches_disc.get(k, 0) for k in launches_f}
     entries = [
         entry("psi_phi_conv", "psi_phi_conv.cu", "conv_pallas.py:32", launches["psi_phi_conv"], err_k1, k1),
         entry("search_topk", "search_topk.cu", "search_pallas.py:182", launches["search_topk"],
-              max(err_k2, k2_band["err"], k2_long["err"], err_long["K2"]), k2),
+              max(err_k2, k2_band["err"], k2_long["err"], err_long["K2"], k2_disc["refine"]["err"],
+                  k2_disc["around"]["err"]), k2),
         entry("search_encoded", "search_topk_encoded_grouped.cu", "search_pallas.py:505", launches["search_encoded"],
               max(err_enc["K3"], k3_long["err"], err_long["K3"]), k3),
         entry("search_paired", "search_topk_encoded.cu", "search_pallas.py:916", launches["search_paired"],

@@ -83,6 +83,25 @@ def generate_all_psi_phi_images(sci, var, psfs, device=None):
     return psi, phi
 
 
+def generate_psi_phi_images(sci, var, psf, device=None):
+    """psi/phi planes of one time step: kernel K1 on ``sci`` and ``var``
+    (H, W) with ``psf`` (an array or a PSF). Returns (psi, phi) as (H, W)
+    float32 tensors on the device, NaN at masked pixels, where the JAX
+    package's function returns numpy arrays."""
+    dev = resolve_device(device)
+    kernel = torch.as_tensor(np.asarray(getattr(psf, "kernel", psf), dtype=np.float32), device=dev)
+    sci_b = torch.as_tensor(np.asarray(sci, dtype=np.float32)[None]).to(dev)
+    var_b = torch.as_tensor(np.asarray(var, dtype=np.float32)[None]).to(dev)
+    psi, phi = _psi_phi_from_sci_var(sci_b, var_b, kernel)
+    return psi[0], phi[0]
+
+
+def generate_psi_phi_from_image_stack(stack, device=None):
+    """psi/phi planes of an ImageStackPy, as :func:`generate_all_psi_phi_images`
+    returns them: (T, H, W) float32 tensors on the device, where the JAX
+    package's function returns lists of numpy arrays."""
+    return generate_all_psi_phi_images(stack.sci, stack.var, stack.psfs, device=device)
+
 
 # ----------------------------------------------------------------------
 # Quantization helpers (parity with psi_phi_array_ds.h:40-47)

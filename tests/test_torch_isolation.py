@@ -1,6 +1,8 @@
 """kbmod_tpu_torch stands alone: it imports and runs a CPU search (float
 and uint8) and the WorkUnit path (write, read, reproject, search with sky
-positions) with ``jax``, ``flax`` and ``kbmod_tpu`` blocked, and the whole
+positions) and the discovery path (exposures on disk to a collection, a
+region search, reprojection, injection, search, recovery and refinement)
+with ``jax``, ``flax`` and ``kbmod_tpu`` blocked, and the whole
 ``SearchRunner`` pipeline (ECSV output, the default clustering, then CNN,
 brightness and known-object vetting of its rows) with scikit-learn,
 PyYAML, pandas, pyarrow, psutil and h5py blocked too; no module of the
@@ -139,6 +141,76 @@ _PIPELINE_SCRIPT = textwrap.dedent(
 )
 
 
+# The discovery path with JAX and the JAX package blocked: two KBMODV1
+# exposures on disk -> fromDir -> RegionSearch -> toWorkUnit ->
+# reproject_work_unit -> inject_sources_into_work_unit ->
+# run_search_from_work_unit -> match_injection_results -> refine_all_results.
+_DISCOVERY_SCRIPT = textwrap.dedent(
+    """
+    import sys
+    for name in ("jax", "flax", "kbmod_tpu"):
+        sys.modules[name] = None
+    import os, tempfile
+    import numpy as np
+    from kbmod_tpu_torch.geom.time_utils import mjd_to_datetime
+    from kbmod_tpu_torch.image_collection import ImageCollection
+    from kbmod_tpu_torch.injection import generate_injection_catalog, inject_sources_into_work_unit, match_injection_results
+    from kbmod_tpu_torch.io import fits_io
+    from kbmod_tpu_torch.region_search import Ephems, RegionSearch
+    from kbmod_tpu_torch.reprojection import reproject_work_unit
+    from kbmod_tpu_torch.run_search import SearchRunner
+    from kbmod_tpu_torch.table import Table
+    from kbmod_tpu_torch.trajectory_explorer import refine_all_results
+    from kbmod_tpu_torch.wcs_utils import make_fake_wcs
+
+    # Two exposures of one field, KBMODV1 files; times through DATE-AVG.
+    tmp, rng, H, W = tempfile.mkdtemp(), np.random.default_rng(0), 40, 48
+    for i, mjd in enumerate((57130.0, 57130.5)):
+        start = mjd - (30.0 + 0.5) / 2.0 / 86400.0
+        primary = fits_io.ImageHDU(name="PRIMARY")
+        primary.header.update({"ZTENSION": "IMAGE", "ZPCOUNT": 0, "ZGCOUNT": 1, "CCDNUM": 1, "EXPREQ": 30.0,
+                               "DATE-AVG": mjd_to_datetime(start).strftime("%Y-%m-%dT%H:%M:%S.%f"), "FILTER": "r"})
+        image = fits_io.ImageHDU(rng.normal(0, 1, (H, W)).astype(np.float32), name="IMAGE")
+        image.header.update(make_fake_wcs(200.0, -7.0, H, W, 1.0 / 3600.0).to_header())
+        fits_io.write_fits(os.path.join(tmp, f"e{i}.fits"), [primary, image,
+                           fits_io.ImageHDU(np.zeros((H, W), np.int32), name="MASK"),
+                           fits_io.ImageHDU(np.ones((H, W), np.float32), name="VARIANCE")])
+    ic = ImageCollection.fromDir(tmp, config={"grow_mask": False})
+    assert len(ic) == 2 and abs(ic["mjd_mid"][1] - 57130.5) < 1e-8, ic["mjd_mid"]
+    rs = RegionSearch(ic)
+    half = 0.35 / 60.0
+    rs.generate_patches(0.7, pixel_scale=1.0, ra_range=(200.0 - half, 200.0 + half), dec_range=(-7.0 - half, -7.0 + half))
+    eph = Ephems(Table({"ra": [200.0], "dec": [-7.0], "mjd": [57130.0]}), "ra", "dec", "mjd")
+    assert rs.search_patches_by_ephems(eph) == [0]
+    patch = rs.get_patch(0)
+    sub = rs.get_image_collection_from_patch(patch)
+    config = {"generator_config": {"name": "VelocityGridSearch", "vx_steps": 9, "min_vx": -8.0, "max_vx": 8.0,
+                                   "vy_steps": 9, "min_vy": -8.0, "max_vy": 8.0},
+              "num_obs": 2, "lh_level": 5.0, "do_clustering": False, "sigmaG_filter": False}
+    wu = reproject_work_unit(sub.toWorkUnit(config), patch.to_wcs(), device="cpu")
+    catalog = generate_injection_catalog(1, 200.0, -7.0, 57130.0, ra_spread_deg=0.001, dec_spread_deg=0.001,
+                                         vel_min=2.0, vel_max=4.0, mag_min=20.5, mag_max=20.6, seed=3)
+    inject_sources_into_work_unit(wu, catalog)
+    keep = SearchRunner().run_search_from_work_unit(wu, device="cpu")
+    match = match_injection_results(catalog, keep, wu)
+    assert bool(match["recovered"][0]), (keep["x"][:3], keep["y"][:3])
+    refined = refine_all_results(keep[[int(match["match_idx"][0])]], wu.im_stack, wu.config, pixel_radius=3,
+                                 max_dv=2.0, dv_steps=5, device="cpu")
+    assert len(refined) == 1
+    print("OK", len(keep), refined["x"][0], refined["y"][0])
+    """
+)
+
+
+def test_discovery_path_runs_without_jax():
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [REPO_ROOT, os.environ.get("PYTHONPATH")])))
+    out = subprocess.run(
+        [sys.executable, "-c", _DISCOVERY_SCRIPT], capture_output=True, text=True, env=env, cwd=REPO_ROOT, timeout=300
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("OK")
+
+
 def test_pipeline_runs_without_jax_or_missing_host_libraries():
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [REPO_ROOT, os.environ.get("PYTHONPATH")])))
     out = subprocess.run(
@@ -193,7 +265,11 @@ def test_port_walk_finds_every_package():
                 "geom/wcs.py", "geom/ecliptic.py", "wcs_utils.py", "native/__init__.py", "io/rice.py",
                 "io/comp_image.py", "io/fits_bintable.py", "io/fits_io.py", "work_unit.py", "reprojection.py",
                 "reprojection_utils.py", "ops/reproject.py", "cmdline/kbmod_search.py", "geom/geodesy.py",
-                "constants.py"):
+                "constants.py", "standardizers/__init__.py", "standardizers/standardizer.py",
+                "standardizers/fits_standardizer.py", "standardizers/kbmodv1.py", "standardizers/kbmodv05.py",
+                "standardizers/butler_standardizer.py", "image_collection.py", "region_search.py", "injection.py",
+                "trajectory_explorer.py", "core/shift_and_stack.py", "cmdline/kbmod_build_ic.py",
+                "cmdline/region_searcher.py", "fake_data/demo_helper.py", "fake_data/fake_result_creator.py"):
         assert f"kbmod_tpu_torch/{new}" in _PORT_FILES
     assert len(_PORT_FILES) >= 25
 

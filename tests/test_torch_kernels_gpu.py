@@ -941,3 +941,120 @@ def test_run_search_from_work_unit_on_card_equals_cpu(dev, tmp_path, monkeypatch
     for k in ("x", "y", "vx", "vy", "obs_count", "likelihood", "flux", "pred_x", "pred_y", "global_ra",
               "global_dec", "img_ra", "img_dec"):
         np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+
+
+# K2 in the trajectory explorer's regimes: refine_linear_trajectory keeps
+# one entry a pixel over a window inside the image (K = 1), and
+# evaluate_around_linear_trajectory keeps every candidate of its pencil at
+# each pixel of an 11 x 11 window (K = len(PencilSearch), in the maps).
+K2_EXPLORER_CASES = {
+    "k1_window": dict(K=1, C=441, window=(17, 58, 9, 50), shape=(12, 64, 72)),
+    "k600_maps": dict(K=600, C=615, window=(30, 41, 20, 31), shape=(12, 48, 64)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(K2_EXPLORER_CASES))
+def test_k2_explorer_shapes_match_twin(dev, name):
+    case = K2_EXPLORER_CASES[name]
+    T, H, W = case["shape"]
+    rng = np.random.default_rng(29)
+    times = np.sort(rng.uniform(0.0, 2.0, T))
+    times[0] = 0.0
+    valid = (rng.uniform(size=(T, H, W)) > 0.05).astype(np.uint8)
+    psi = np.where(valid, rng.normal(0, 1, (T, H, W)), 0).astype(np.float32)
+    phi = np.where(valid, rng.uniform(0.5, 2.0, (T, H, W)), 0).astype(np.float32)
+    vxs = rng.uniform(-6, 6, case["C"]).astype(np.float32)
+    vys = rng.uniform(-6, 6, case["C"]).astype(np.float32)
+    dxs, dys = trajectory_offsets(vxs, vys, times)
+    x0, x1, y0, y1 = case["window"]
+    args = [torch.as_tensor(a, device=dev) for a in (psi, phi, valid, dxs, dys)] + [1.0, -1e25]
+    kw = dict(k_results=case["K"], x_min=x0, x_max=x1, y_min=y0, y_max=y1)
+    launches = search_kernel.search_topk.launches
+    got = search_kernel.search_topk(*args, **kw)
+    assert search_kernel.search_topk.launches == launches + 1
+    ref = search_kernel.search_topk_shift(*args, **kw)
+    assert got[1].shape == (case["K"], y1 - y0, x1 - x0)
+    assert torch.equal(got[1], ref[1])
+    assert torch.equal(got[0], ref[0])
+    assert int((ref[1][-1] >= 0).sum()) > 0, "no list filled to its last slot"
+
+
+def test_explorer_on_card_equals_cpu(dev, monkeypatch):
+    """refine_all_results (K = 1 windows, one psi/phi build for every row)
+    and evaluate_around_linear_trajectory (a pencil of more than 64, in the
+    maps) on the card against device="cpu": the same rows (x, y, vx, vy and
+    obs_count exact), lh and flux within twice Queue 3's float32 bound of
+    the row's sums, (T+1) u sum|psi| / sqrt(sum phi) + 2 u |lh| (flux: over
+    sum phi), since the assembly re-scores each row with a torch sum over
+    its samples, which adds in one order on the card and another on the
+    CPU. Both search the CPU build's planes (K1's CPU twin may round an ulp
+    or two away from K1), handed over where the explorer builds its
+    StackSearch."""
+    import kbmod_tpu_torch.trajectory_explorer as te
+    from kbmod_tpu_torch.configuration import SearchConfiguration
+    from kbmod_tpu_torch.fake_data.fake_data_creator import FakeDataSet, create_fake_times
+    from kbmod_tpu_torch.ops.psi_phi import psi_phi_array_from_numpy
+    from kbmod_tpu_torch.results import Results
+    from kbmod_tpu_torch.search import StackSearch, Trajectory
+
+    times = create_fake_times(10, t0=57130.2, obs_per_day=4)
+    ds = FakeDataSet(96, 80, times, psf_val=1.2, mask_fraction=0.02, use_seed=23)
+    for trj in (Trajectory(x=25, y=30, vx=6.0, vy=2.0, flux=400.0), Trajectory(x=70, y=55, vx=-5.0, vy=-2.0,
+                                                                                flux=350.0)):
+        ds.insert_object(trj)
+    st = ds.stack_py
+    cpu = StackSearch(st.sci, st.var, st.psfs, st.zeroed_times, -1, device="cpu").psi_phi_array
+    planes = (cpu.psi.numpy(), cpu.phi.numpy(), cpu.valid.numpy(), cpu.times, cpu.meta)
+
+    class HandedOver(StackSearch):
+        def __init__(self, *args, device=None):
+            super().__init__(*args, device=device)
+            self.psi_phi_array = psi_phi_array_from_numpy(*planes, device=self.device)
+
+    monkeypatch.setattr(te, "StackSearch", HandedOver)
+    config = SearchConfiguration.from_dict({"num_obs": 6})
+    rough = [(26, 29, 5.5, 2.5), (24, 31, 6.5, 1.5), (71, 56, -4.5, -1.5)]
+    out = []
+    for where in (dev, "cpu"):
+        launches = search_kernel.search_topk.launches
+        refined = te.refine_all_results(
+            Results.from_trajectories([Trajectory(x=x, y=y, vx=vx, vy=vy, lh=5.0) for x, y, vx, vy in rough]),
+            st, config, pixel_radius=6, max_dv=2.0, dv_steps=9, device=where)
+        around = te.TrajectoryExplorer(st, config=config, device=where).evaluate_around_linear_trajectory(
+            25, 30, 6.0, 2.0, pixel_radius=5, max_ang_offset=0.2, ang_step=0.05, max_vel_offset=3.0, vel_step=0.5)
+        if where == dev:
+            assert search_kernel.search_topk.launches == launches + len(rough) + 1
+        out.append((refined, around))
+    (g_ref, g_ar), (c_ref, c_ar) = out
+    assert len(g_ref) == len(c_ref) == 2 and len(g_ar) == len(c_ar) > 121 * 64
+    for got, ref in ((g_ref, c_ref), (g_ar, c_ar)):
+        # Rows in one order on both sides: lh ties within the rounding may
+        # order them differently.
+        gi, ci = (np.lexsort([np.asarray(r[c]) for c in ("vy", "vx", "y", "x")]) for r in (got, ref))
+        for k in ("x", "y", "vx", "vy", "obs_count"):
+            np.testing.assert_array_equal(np.asarray(got[k])[gi], np.asarray(ref[k])[ci], err_msg=k)
+        bounds = _row_sum_bounds(planes, st.zeroed_times, ref)
+        for k in ("likelihood", "flux"):
+            a, b = np.asarray(got[k], np.float64)[gi], np.asarray(ref[k], np.float64)[ci]
+            assert np.all(np.abs(a - b) <= 2 * bounds[k][ci]), k
+
+
+def _row_sum_bounds(planes, times, res):
+    """Queue 3's float32 rounding bound of each row's lh and flux, from its
+    samples in the float planes (psi and phi zero where invalid)."""
+    psi, phi, valid = planes[:3]
+    T, H, W = psi.shape
+    dxs, dys = trajectory_offsets(np.asarray(res["vx"]), np.asarray(res["vy"]), times)
+    px = np.asarray(res["x"], np.int64)[:, None] + dxs
+    py = np.asarray(res["y"], np.int64)[:, None] + dys
+    ok = (px >= 0) & (px < W) & (py >= 0) & (py < H)
+    tt = np.broadcast_to(np.arange(T), px.shape)
+    pxc, pyc = np.clip(px, 0, W - 1), np.clip(py, 0, H - 1)
+    ok &= valid[tt, pyc, pxc] > 0
+    abs_psi = np.where(ok, np.abs(psi[tt, pyc, pxc].astype(np.float64)), 0.0).sum(axis=1)
+    phi_sum = np.where(ok, phi[tt, pyc, pxc].astype(np.float64), 0.0).sum(axis=1)
+    root = np.sqrt(np.maximum(phi_sum, 1e-300))
+    u = 2.0**-24
+    lh, flux = np.abs(np.asarray(res["likelihood"], np.float64)), np.abs(np.asarray(res["flux"], np.float64))
+    return {"likelihood": (T + 1) * u * abs_psi / root + 2 * u * lh,
+            "flux": (T + 1) * u * (abs_psi / np.maximum(phi_sum, 1e-300) + flux) + 2 * u * flux}
