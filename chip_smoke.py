@@ -10,7 +10,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 2. the nvcc build of every CUDA kernel, all sources compiled together, and
    the g++ build of the native host library;
 3. kernel checks: each kernel against its plain PyTorch twin on the card
-   (K1 over PSFs from 1 x 1 to 21 x 21; K2; K3, K4 and K5 over
+   (K1 over PSFs from 1 x 1 to 21 x 21, and the twin run on the CPU
+   against K1 for each, bit for bit; K2; K3, K4 and K5 over
    uint8/uint16 codes, T up to 300; K2-K5 with lists of K = 128, past the
    64 that registers hold; the grouped kernels K2, K5 and K3 at
    T = 1,000-1,500, past the T their tables once capped; dedup; K6 in
@@ -92,8 +93,17 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``global_ra``/``global_dec`` no further from the object's true sky path
    than row 0's own pixel path plus half a pixel; the WorkUnit through
    ``to_fits``/``from_fits`` (every layer equal) and the ``kbmod_search``
-   command in a child process on the card (its row 0 equal); a native
-   RICE_1 round trip and a sharded one of four layers;
+   command in a child process on the card (its row 0 equal); then the
+   tools on that file and the child's results, in this process through
+   their ``main(argv)``: ``kbmod_stats``, ``kbmod_strip_results`` (the
+   curves and obs_valid dropped), ``kbmod_filter --workunit --sigma_g_bnds
+   25,75 --device cuda`` (one K1 launch, driven with the counts at 0; the
+   rebuilt curves bit-equal to the child's, obs_valid equal, row 0 still
+   the best row), ``kbmod_stamps``
+   (mean, median and sum coadds on the card, the sum equal to the child's),
+   ``Visualizer.generate_all_stamps`` on the card and ``kbmod_version
+   --full`` in a child, which must name the card; each tool's wall; a
+   native RICE_1 round trip and a sharded one of four layers;
 15. discovery: the main stack as 64 KBMODV1 exposures on disk (four
    pointings a whole number of pixels apart, NO_DATA borders, BAD masked
    pixels, times through DATE-AVG), a collection from the
@@ -260,7 +270,8 @@ def _assert_k1_equal(tag, got, ref):
 def check_k1(dev):
     """K1 against its twin, bit for bit: the templated sizes (odd squares to
     15 x 15) and the generic kernel (3 x 5, 4 x 4, 21 x 21), on a stack whose
-    width and height are multiples of neither tile."""
+    width and height are multiples of neither tile; and against the twin run
+    on the CPU, which reads the same host-built tap table."""
     from kbmod_tpu_torch.core.psf import PSF
     from kbmod_tpu_torch.ops.conv_kernel import psi_phi_conv, psi_phi_conv_plain
 
@@ -275,13 +286,18 @@ def check_k1(dev):
     psfs = [("sigma=%.1f" % s, PSF.make_gaussian_kernel(s)) for s in (1.0, 1.4, 2.0, 2.5, 3.5)]
     psfs.append(("1x1", np.ones((1, 1), np.float32)))
     psfs += [(f"{kh}x{kw}", rng.uniform(-0.1, 1, (kh, kw)).astype(np.float32)) for kh, kw in ((3, 5), (4, 4))]
+    sci_h, var_h = torch.as_tensor(sci), torch.as_tensor(var)
     for name, psf in psfs:
         k = torch.as_tensor(psf, device=dev)
         got = psi_phi_conv(sci_d, var_d, k)
         ref = psi_phi_conv_plain(sci_d, var_d, k)
         torch.cuda.synchronize()
         worst = max(worst, _assert_k1_equal(name, got, ref))
-        log(f"K1 check {name} psf {tuple(psf.shape)}: ok (bit-equal)")
+        # The twin on the host reads the same tap table: the CPU's build is
+        # the card's, bit for bit.
+        host = psi_phi_conv_plain(sci_h, var_h, psf)
+        worst = max(worst, _assert_k1_equal(f"{name} (the CPU's twin)", [g.cpu() for g in got], host))
+        log(f"K1 check {name} psf {tuple(psf.shape)}: ok (bit-equal to the twin on the card and on the CPU)")
     return worst
 
 
@@ -1874,6 +1890,10 @@ def workunit_path(stack, obj, card, dev):
         if not np.array_equal(np.asarray(res["global_ra"][0]), np.asarray(keep["global_ra"][0])):
             raise AssertionError("workunit: the child's global_ra of row 0 differs")
 
+        # 4b. The command-line tools on the child's file and results.
+        launches = dict(launches)
+        _add(launches, tools_path(path, out, reproj.im_stack, keep, card, dev))
+
         # 5. Native RICE_1 (quantized) and the sharded form, four layers.
         if not native.available():
             raise AssertionError("workunit: the native library did not build")
@@ -1921,6 +1941,104 @@ def workunit_path(stack, obj, card, dev):
             raise AssertionError(f"workunit: RICE_1 round trip: {calls['n']} native encodes, max error {worst}")
         if not sh_same:
             raise AssertionError("workunit: the sharded round trip changed the layers")
+    return launches
+
+
+# ----------------------------------------------------------------------
+# The command-line tools on the workunit phase's file
+# ----------------------------------------------------------------------
+
+TOOLS_SIGMA_G = "25,75"
+TOOLS_COADDS = ("mean", "median", "sum")
+TOOLS_CHILD_TIMEOUT_S = 120
+
+
+def tools_path(wu_path, res_path, stack, keep, card, dev):
+    """The tools on the workunit phase's WorkUnit file (``wu_path``, GZIP_1)
+    and the ``kbmod_search`` child's results (``res_path``), each called
+    in this process through its ``main(argv)``: ``kbmod_stats``;
+    ``kbmod_strip_results`` drops the curves and obs_valid (its default
+    columns); ``kbmod_filter --workunit --sigma_g_bnds 25,75`` rebuilds the
+    curves with one K1 launch on the card (driven with the counts at 0),
+    bit-equal to the curves the child stored (the same file, card and
+    kernel), clips them to the child's obs_valid, row 0 still the object's
+    row and the best; ``kbmod_stamps`` makes mean, median and sum coadds on the card,
+    the sum equal to the child's own coadd. Then ``Visualizer(stack,
+    keep, device=dev).generate_all_stamps()`` on the card (its stamps summed over the
+    valid times near the in-memory search's coadd), and ``kbmod_version
+    --full`` as one ``python -m`` child, which must name the card. Each
+    tool's wall is logged. Returns the launches of ``kbmod_filter``."""
+    from kbmod_tpu_torch.analysis.visualizer import Visualizer
+    from kbmod_tpu_torch.cmdline import kbmod_filter, kbmod_stamps, kbmod_stats, kbmod_strip_results
+    from kbmod_tpu_torch.results import Results
+
+    tmp = os.path.dirname(res_path)
+    stripped, filtered, stamped = (os.path.join(tmp, f"{name}.ecsv") for name in ("stripped", "filtered", "stamped"))
+    walls = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        return out
+
+    timed("kbmod_stats", lambda: kbmod_stats.main([f"--input={res_path}"]))
+    # The default columns: the curves and obs_valid go, so that kbmod_filter
+    # clips the rebuilt curves afresh, as the search clipped its own.
+    timed("kbmod_strip_results", lambda: kbmod_strip_results.main([f"--input={res_path}", f"--outfile={stripped}"]))
+    if {"psi_curve", "phi_curve", "obs_valid"} & set(Results.read_table(stripped).colnames):
+        raise AssertionError("tools: kbmod_strip_results kept a curve or obs_valid")
+    _, launches, wall = drive("tools: kbmod_filter --workunit --sigma_g_bnds (K1)", ("psi_phi_conv",),
+                              lambda: kbmod_filter.main([f"--input={stripped}", f"--outfile={filtered}",
+                                                         f"--workunit={wu_path}", f"--sigma_g_bnds={TOOLS_SIGMA_G}",
+                                                         "--device", dev.type]))
+    walls["kbmod_filter"] = wall / 1e3
+    stored, rebuilt = Results.read_table(res_path), Results.read_table(filtered)
+    if len(rebuilt) != len(stored):
+        raise AssertionError(f"tools: kbmod_filter kept {len(rebuilt)} of {len(stored)} rows")
+    for col in ("psi_curve", "phi_curve"):
+        a, b = np.asarray(rebuilt[col], np.float32), np.asarray(stored[col], np.float32)
+        if a.shape != b.shape or not np.array_equal(a.view(np.int32), b.view(np.int32)):
+            raise AssertionError(f"tools: the rebuilt {col} is not bit-equal to the search's")
+    if not np.array_equal(np.asarray(rebuilt["obs_valid"]), np.asarray(stored["obs_valid"])):
+        raise AssertionError("tools: kbmod_filter's sigma-G kept other samples than the search's")
+    row0 = {k: rebuilt[k][0] for k in ("x", "y", "vx", "vy", "obs_count", "likelihood")}
+    if any(rebuilt[k][0] != stored[k][0] for k in ("x", "y", "vx", "vy")):
+        raise AssertionError(f"tools: the filtered row 0 {row0} is not the search's row 0")
+    if int(np.argmax(np.asarray(rebuilt["likelihood"]))) != 0:
+        raise AssertionError(f"tools: after sigma-G row 0 {row0} is not the best row")
+
+    timed("kbmod_stamps", lambda: kbmod_stamps.main([f"--input={filtered}", f"--outfile={stamped}",
+                                                      f"--workunit={wu_path}", f"--coadds={','.join(TOOLS_COADDS)}",
+                                                      "--device", dev.type]))
+    stamps = Results.read_table(stamped)
+    for kind in TOOLS_COADDS:
+        c = np.asarray(stamps[f"coadd_{kind}"])
+        if c.shape != (len(stamps), 21, 21) or not np.isfinite(c).all():
+            raise AssertionError(f"tools: coadd_{kind} of shape {c.shape} is not finite")
+    if not np.array_equal(np.asarray(stamps["coadd_sum"]), np.asarray(stored["coadd_sum"])):
+        raise AssertionError("tools: kbmod_stamps' coadd_sum differs from the search's own")
+
+    vis = Visualizer(stack, keep, device=dev)
+    timed("Visualizer.generate_all_stamps", vis.generate_all_stamps)
+    cube = np.asarray(keep["all_stamps"])
+    valid = np.asarray(keep["obs_valid"], bool)
+    summed = np.where(valid[:, :, None, None], np.nan_to_num(cube), 0.0).sum(axis=1)
+    coadd = np.asarray(keep["coadd_sum"])
+    worst = float(np.max(np.abs(summed - coadd) / np.maximum(np.abs(coadd), 1.0)))
+    if cube.shape != (len(keep), len(stack.sci), 21, 21) or worst > 1e-4:
+        raise AssertionError(f"tools: Visualizer's all_stamps {cube.shape} sum to the coadd within {worst:.3g}")
+
+    stdout, walls["kbmod_version child"] = run_child("tools", ["kbmod_tpu_torch.cmdline.kbmod_version", "--full"],
+                                                     TOOLS_CHILD_TIMEOUT_S)
+    if torch.cuda.get_device_name(0) not in stdout:
+        raise AssertionError(f"tools: kbmod_version --full does not name the card:\n{stdout}")
+    log(f"tools: {len(rebuilt)} rows; the rebuilt curves bit-equal to the search's, obs_valid equal; row 0 {row0}; coadds "
+        f"{list(TOOLS_COADDS)}, the sum equal to the search's; Visualizer's all_stamps {cube.shape}, summed over "
+        f"the valid times within {worst:.3g} of the coadd; kbmod_version: {' | '.join(stdout.strip().splitlines())}")
+    log("tools: walls (s, host clock): " + ", ".join(f"{k} {v:.2f}" for k, v in walls.items())
+        + f"; K1 launches in kbmod_filter {launches['psi_phi_conv']}; {card}")
     return launches
 
 
@@ -2718,19 +2836,29 @@ def main():
                                                  "count": torch.cuda.device_count()}}))
         return 0
 
-    stack, obj, cands, obj_c = make_main_stack(args.seed)
-    search, launches_f, full_rows, full_t = main_path(stack, obj, cands)
-    searches, sparse, launches_q = quantized_path(stack, obj, cands, obj_c)
-    launches_p, _, _ = pipeline_path(stack, obj, card, dev)
-    launches_s = switch_path(search, searches, obj, cands, full_rows, full_t)
-    exact_path(search, obj, cands, card)
-    vetting = vetting_path(stack, obj, card, dev)
-    launches_c, _ = ckpt_path(search, searches, stack, cands, full_rows, full_t, args.seed, card)
-    launches_sh, _ = sharded_path(search, searches, stack, obj, cands, full_rows, card, dev)
-    launches_prof = profile_path(stack, obj, card)
-    launches_k6 = k6_path()
-    launches_wu = workunit_path(stack, obj, card, dev)
-    launches_disc, k2_disc = discovery_path(stack, obj, card, dev)
+    walls = {}
+
+    def phase(name, fn, *fn_args):
+        """Run one path and keep its wall (host clock) for the summary."""
+        t0 = time.perf_counter()
+        out = fn(*fn_args)
+        walls[name] = time.perf_counter() - t0
+        return out
+
+    stack, obj, cands, obj_c = phase("main stack", make_main_stack, args.seed)
+    search, launches_f, full_rows, full_t = phase("float path", main_path, stack, obj, cands)
+    searches, sparse, launches_q = phase("quantized path", quantized_path, stack, obj, cands, obj_c)
+    launches_p, _, _ = phase("pipelines", pipeline_path, stack, obj, card, dev)
+    launches_s = phase("switches", switch_path, search, searches, obj, cands, full_rows, full_t)
+    phase("exact sigma-G", exact_path, search, obj, cands, card)
+    vetting = phase("vetting", vetting_path, stack, obj, card, dev)
+    launches_c, _ = phase("ckpt", ckpt_path, search, searches, stack, cands, full_rows, full_t, args.seed, card)
+    launches_sh, _ = phase("sharded", sharded_path, search, searches, stack, obj, cands, full_rows, card, dev)
+    launches_prof = phase("profile", profile_path, stack, obj, card)
+    launches_k6 = phase("K6 path", k6_path)
+    launches_wu = phase("workunit and tools", workunit_path, stack, obj, card, dev)
+    launches_disc, k2_disc = phase("discovery", discovery_path, stack, obj, card, dev)
+    t_timing = time.perf_counter()
     k1 = time_k1(stack, dev)
     T, H, W = len(stack.sci), *np.asarray(stack.sci[0]).shape
     y0 = obj.y - 128
@@ -2793,6 +2921,8 @@ def main():
         entry("exactrow_accumulate", "exactrow_microbench.cu", "scripts/exactrow_microbench.py:49", launches_k6,
               err_k6, k6[(K6_MIDSCALE_NG, "C")]),
     ]
+    walls["kernel timings"] = time.perf_counter() - t_timing
+    log("phase walls (s, host clock): " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()) + f"; {card}")
     print(json.dumps({"kernels": entries}))
     log(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

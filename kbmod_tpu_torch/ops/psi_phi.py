@@ -29,8 +29,9 @@ def _psi_phi_from_sci_var(sci, var, psf):
     """Fused psi/phi generation for a batch of images sharing one PSF.
 
     sci, var: (N, H, W) float32 tensors (NaN = masked); psf: (kh, kw)
-    float32 on the same device. Returns psi, phi: (N, H, W) float32 with NaN
-    at masked pixels. Runs kernel K1 on a card, its plain twin on the CPU.
+    float32 tensor on the host, where K1 builds its tap table. Returns psi,
+    phi: (N, H, W) float32 with NaN at masked pixels. Runs kernel K1 on a
+    card, its plain twin on the CPU.
     """
     return psi_phi_conv(sci, var, psf)
 
@@ -71,7 +72,7 @@ def generate_all_psi_phi_images(sci, var, psfs, device=None):
     phi = torch.empty((num, h, w), dtype=torch.float32, device=dev)
     groups, kernels, batch = _psf_conv_groups(sci, psfs, dev)
     for idxs in groups.values():
-        k = torch.as_tensor(kernels[idxs[0]], device=dev)
+        k = torch.as_tensor(kernels[idxs[0]])
         for lo in range(0, len(idxs), batch):
             chunk = idxs[lo : lo + batch]
             sci_b = torch.as_tensor(np.stack([np.asarray(sci[i], dtype=np.float32) for i in chunk])).to(dev)
@@ -89,7 +90,7 @@ def generate_psi_phi_images(sci, var, psf, device=None):
     float32 tensors on the device, NaN at masked pixels, where the JAX
     package's function returns numpy arrays."""
     dev = resolve_device(device)
-    kernel = torch.as_tensor(np.asarray(getattr(psf, "kernel", psf), dtype=np.float32), device=dev)
+    kernel = torch.as_tensor(np.asarray(getattr(psf, "kernel", psf), dtype=np.float32))
     sci_b = torch.as_tensor(np.asarray(sci, dtype=np.float32)[None]).to(dev)
     var_b = torch.as_tensor(np.asarray(var, dtype=np.float32)[None]).to(dev)
     psi, phi = _psi_phi_from_sci_var(sci_b, var_b, kernel)
@@ -268,7 +269,7 @@ def fill_psi_phi_array_streaming(result, num_bytes, sci, var, psfs, zeroed_times
 
     def chunks():
         for idxs in groups.values():
-            k = torch.as_tensor(kernels[idxs[0]], device=dev)
+            k = torch.as_tensor(kernels[idxs[0]])
             for lo in range(0, len(idxs), batch):
                 chunk = idxs[lo : lo + batch]
                 sci_b = torch.as_tensor(np.stack([np.asarray(sci[i], dtype=np.float32) for i in chunk])).to(dev)

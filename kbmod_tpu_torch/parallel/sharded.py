@@ -427,7 +427,7 @@ def sharded_psi_phi_build(sci, var, psf, mesh):
         psi = torch.full((t_per, H, W), float("nan"), dtype=torch.float32, device=mesh.root)
         phi = torch.full_like(psi, float("nan"))
         if t1 > t0:
-            p, f = psi_phi_conv(sci[t0:t1].to(dev), var[t0:t1].to(dev), psf.to(dev))
+            p, f = psi_phi_conv(sci[t0:t1].to(dev), var[t0:t1].to(dev), psf)
             psi[: t1 - t0] = p.to(mesh.root)
             phi[: t1 - t0] = f.to(mesh.root)
         psis.append(psi)

@@ -57,17 +57,48 @@ def test_mask_terms_equal_and_masked_and_fused_sums(shape):
         assert _bits(plain[0]) == 0  # all masked: +0.0, never -0.0
 
 
+def _sequential_sum(values):
+    """A float32 sum, one add at a time, first value first."""
+    acc = np.float32(0.0)
+    for v in np.asarray(values, np.float32).ravel():
+        acc = np.float32(acc + v)
+    return acc
+
+
 def test_tap_table_is_the_twins():
     psf = PSF.make_gaussian_kernel(1.4)
     psf[0, 0] = -0.01  # a negative tap
-    t = conv_kernel.psf_taps(torch.as_tensor(psf)).numpy()
+    t = conv_kernel.psf_taps(torch.as_tensor(psf))
     n = psf.size
     assert t.dtype == np.float32 and t.shape == (2 * n + 2,)
     np.testing.assert_array_equal(_bits(t[:n]), _bits(psf.ravel()))
     np.testing.assert_array_equal(_bits(t[n : 2 * n]), _bits(psf.ravel() * psf.ravel()))
-    k = torch.as_tensor(psf)
-    assert _bits(t[2 * n]) == _bits(torch.sum(k).numpy())
-    assert _bits(t[2 * n + 1]) == _bits(torch.sum(k * k).numpy())
+    assert _bits(t[2 * n]) == _bits(_sequential_sum(psf))
+    assert _bits(t[2 * n + 1]) == _bits(_sequential_sum(psf * psf))
+
+
+# 42 Gaussian PSFs, sigma 0.8 to 3.0 on sizes 5 x 5 to 15 x 15: torch.sum
+# adds in another order than a sequential sum for most of them, so a table
+# summed on each device rounded differently on each.
+GAUSSIANS = [(s, w) for s in np.round(np.linspace(0.8, 3.0, 7), 3) for w in (5, 7, 9, 11, 13, 15)]
+
+
+@pytest.mark.parametrize("sigma,width", GAUSSIANS)
+def test_tap_table_one_order_for_every_form(sigma, width):
+    """The same float32 table whether the PSF comes as numpy, as a CPU
+    tensor or as a float64 array; its sums are the sequential float32 sums
+    in row-major order, whatever torch.sum would give."""
+    r = np.arange(width) - width // 2
+    g = np.exp(-(r[:, None] ** 2 + r[None, :] ** 2) / (2.0 * sigma**2))
+    psf = (g / g.sum()).astype(np.float32)
+    n = psf.size
+    tables = [conv_kernel.psf_taps(psf), conv_kernel.psf_taps(torch.as_tensor(psf)),
+              conv_kernel.psf_taps(psf.astype(np.float64))]
+    for t in tables[1:]:
+        np.testing.assert_array_equal(_bits(t), _bits(tables[0]))
+    t = tables[0]
+    assert _bits(t[2 * n]) == _bits(_sequential_sum(psf))
+    assert _bits(t[2 * n + 1]) == _bits(_sequential_sum(psf.ravel() * psf.ravel()))
 
 
 def _replay(sci, var, table, kh, kw):
@@ -117,7 +148,7 @@ def test_kernel_arithmetic_replayed_equals_twin(psf):
     else:
         k = rng.uniform(-0.2, 1, (3, 5)).astype(np.float32)
     kt = torch.as_tensor(k)
-    table = conv_kernel.psf_taps(kt).numpy()
+    table = conv_kernel.psf_taps(kt)
     got = _replay(sci, var, table, *k.shape)
     ref = conv_kernel.psi_phi_conv_plain(torch.as_tensor(sci), torch.as_tensor(var), kt)
     for g, r in zip(got, ref):

@@ -5,10 +5,14 @@ region search, reprojection, injection, search, recovery and refinement)
 with ``jax``, ``flax`` and ``kbmod_tpu`` blocked, and the whole
 ``SearchRunner`` pipeline (ECSV output, the default clustering, then CNN,
 brightness and known-object vetting of its rows) with scikit-learn,
-PyYAML, pandas, pyarrow, psutil and h5py blocked too; no module of the
-port (``scripts/`` included) nor ``chip_smoke.py`` imports JAX, flax or
-the JAX package at any depth of its code, and an entry point left to its
-default device (CUDA) raises on a host without a card."""
+PyYAML, pandas, pyarrow, psutil and h5py blocked too, and the command-line
+tools' chain (create test data, search, strip, filter with the curves
+rebuilt from the WorkUnit, stamps, stats, the Visualizer's stamps) with
+matplotlib, pyarrow, scikit-learn and pandas blocked; every module of the
+JAX package but its two Pallas files has a counterpart in the port; no
+module of the port (``scripts/`` included) nor ``chip_smoke.py`` imports
+JAX, flax or the JAX package at any depth of its code, and an entry point
+left to its default device (CUDA) raises on a host without a card."""
 
 import ast
 import os
@@ -202,6 +206,67 @@ _DISCOVERY_SCRIPT = textwrap.dedent(
 )
 
 
+# The command-line tools' chain, each tool through its main(argv) with
+# --device cpu where its work reaches the card, with JAX, the JAX package
+# and the host libraries that no chip phase may need blocked (PyYAML stays:
+# the WorkUnit file carries its configuration as YAML).
+_TOOLS_SCRIPT = textwrap.dedent(
+    """
+    import sys
+    BLOCKED = ("jax", "flax", "kbmod_tpu", "matplotlib", "pyarrow", "sklearn", "pandas")
+    for name in BLOCKED:
+        sys.modules[name] = None
+    import os, tempfile
+    import numpy as np
+    from kbmod_tpu_torch.cmdline import (kbmod_create_test_data, kbmod_filter, kbmod_search, kbmod_stamps,
+                                         kbmod_stats, kbmod_strip_results)
+    from kbmod_tpu_torch.configuration import SearchConfiguration
+    from kbmod_tpu_torch.results import Results
+
+    tmp = tempfile.mkdtemp()
+    path = lambda name: os.path.join(tmp, name)
+    kbmod_create_test_data.main([f"--outfile={path('wu.fits')}", "--num_times=8", "--width=48", "--height=40",
+                                 "--num_objects=1", "--flux=600", "--seed=5"])
+    SearchConfiguration.from_dict({
+        "generator_config": {"name": "EclipticCenteredSearch", "velocities": [0.0, 60.0, 9],
+                             "angles": [-3.2, 3.2, 9], "angle_units": "radian", "given_ecliptic": 0.0},
+        "num_obs": 4, "lh_level": 8.0, "compute_ra_dec": False}).to_file(path("cfg.yaml"))
+    kbmod_search.main(["--workunit", path("wu.fits"), "--outfile", path("found.ecsv"), "--config", path("cfg.yaml"),
+                       "--device", "cpu"])
+    found = Results.read_table(path("found.ecsv"))
+    kbmod_strip_results.main([f"--input={path('found.ecsv')}", f"--outfile={path('stripped.ecsv')}",
+                              "--cols=psi_curve,phi_curve"])
+    kbmod_filter.main([f"--input={path('stripped.ecsv')}", f"--outfile={path('filtered.ecsv')}",
+                       f"--workunit={path('wu.fits')}", "--sigma_g_bnds=25,75", "--device", "cpu"])
+    filtered = Results.read_table(path("filtered.ecsv"))
+    assert len(filtered) == len(found) > 0
+    for col in ("psi_curve", "phi_curve"):
+        assert np.array_equal(np.asarray(filtered[col]), np.asarray(found[col])), col
+    kbmod_stamps.main([f"--input={path('filtered.ecsv')}", f"--outfile={path('stamps.ecsv')}",
+                       f"--workunit={path('wu.fits')}", "--coadds=mean,median,sum", "--device", "cpu"])
+    stamps = Results.read_table(path("stamps.ecsv"))
+    assert np.asarray(stamps["coadd_median"]).shape == (len(found), 21, 21)
+    kbmod_stats.main([f"--input={path('stamps.ecsv')}"])
+    from kbmod_tpu_torch.analysis.visualizer import Visualizer
+    from kbmod_tpu_torch.work_unit import WorkUnit
+    Visualizer(WorkUnit.from_fits(path("wu.fits")).im_stack, stamps, device="cpu").generate_all_stamps()
+    assert np.asarray(stamps["all_stamps"]).shape == (len(found), 8, 21, 21)
+    bad = [m for m in BLOCKED if sys.modules.get(m) is not None]
+    assert not bad, bad
+    print("OK", len(found))
+    """
+)
+
+
+def test_tools_chain_runs_without_jax_or_host_libraries():
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [REPO_ROOT, os.environ.get("PYTHONPATH")])))
+    out = subprocess.run(
+        [sys.executable, "-c", _TOOLS_SCRIPT], capture_output=True, text=True, env=env, cwd=REPO_ROOT, timeout=300
+    )
+    assert out.returncode == 0, out.stderr
+    assert "Rows: " in out.stdout and out.stdout.strip().splitlines()[-1].startswith("OK")
+
+
 def test_discovery_path_runs_without_jax():
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [REPO_ROOT, os.environ.get("PYTHONPATH")])))
     out = subprocess.run(
@@ -269,9 +334,22 @@ def test_port_walk_finds_every_package():
                 "standardizers/fits_standardizer.py", "standardizers/kbmodv1.py", "standardizers/kbmodv05.py",
                 "standardizers/butler_standardizer.py", "image_collection.py", "region_search.py", "injection.py",
                 "trajectory_explorer.py", "core/shift_and_stack.py", "cmdline/kbmod_build_ic.py",
-                "cmdline/region_searcher.py", "fake_data/demo_helper.py", "fake_data/fake_result_creator.py"):
+                "cmdline/region_searcher.py", "fake_data/demo_helper.py", "fake_data/fake_result_creator.py",
+                "analysis/__init__.py", "analysis/plotting.py", "analysis/visualizer.py",
+                "analysis/analyze_fakes.py", "analysis/results_rater.py", "cmdline/kbmod_filter.py",
+                "cmdline/kbmod_stamps.py", "cmdline/kbmod_version.py"):
         assert f"kbmod_tpu_torch/{new}" in _PORT_FILES
     assert len(_PORT_FILES) >= 25
+
+
+def test_every_jax_module_has_a_counterpart():
+    """The JAX package's modules missing from the port are exactly its two
+    Pallas files, whose kernels (K1-K5) the port's CUDA sources replace."""
+    jax_root = os.path.join(REPO_ROOT, "kbmod_tpu")
+    jax_files = {os.path.relpath(os.path.join(root, name), jax_root)
+                 for root, _, files in os.walk(jax_root) for name in files if name.endswith(".py")}
+    port = {os.path.relpath(p, "kbmod_tpu_torch") for p in _PORT_FILES}
+    assert sorted(jax_files - port) == ["ops/conv_pallas.py", "ops/search_pallas.py"]
 
 
 @pytest.mark.parametrize("path", _PORT_FILES)

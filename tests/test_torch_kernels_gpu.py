@@ -550,19 +550,35 @@ def test_batched_coadds_on_card_equal_cpu(dev):
             np.testing.assert_array_equal(got[kind], ref[kind], err_msg=kind)
 
 
+def _assert_builds_equal(card, cpu):
+    """Two PsiPhiArrays, one built on the card and one on the CPU: the same
+    planes bit for bit (float psi/phi and validity, or the code planes and
+    the encoding's parameters)."""
+    assert card.meta.num_bytes == cpu.meta.num_bytes
+    for name in ("psi_min_val", "psi_max_val", "psi_scale", "phi_min_val", "phi_max_val", "phi_scale"):
+        assert getattr(card.meta, name) == getattr(cpu.meta, name), name
+    planes = (("psi", card.psi, cpu.psi), ("phi", card.phi, cpu.phi))
+    if cpu.meta.num_bytes == 4:
+        planes += (("valid", card.valid, cpu.valid),)
+    for name, a, b in planes:
+        a = a.cpu()
+        if a.is_floating_point():
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32)), f"{name}: the builds differ"
+        else:
+            assert torch.equal(a, b), f"{name}: the builds differ"
+
+
 @pytest.mark.parametrize("num_bytes,gpu_filter", [(-1, False), (1, True)], ids=["float-host-sigmag", "u8-gpu-filter"])
-def test_search_runner_on_card_equals_cpu(dev, tmp_path, monkeypatch, num_bytes, gpu_filter):
+def test_search_runner_on_card_equals_cpu(dev, tmp_path, num_bytes, gpu_filter):
     """A small SearchRunner run on the card equals the CPU run: rows exact,
     lh bit-equal (every kernel equals its twin, the gathers and the host
-    stages are the same arithmetic). K1's plain twin on the CPU may round a
-    psi/phi value an ulp or two away from K1 (and itself) on the card, which
-    moves a uint8 code by at most one: that is checked (and counted) first,
-    and then both runs search the CPU build's planes, handed over where the
-    runner builds its StackSearch."""
+    stages are the same arithmetic). Each run builds its own psi/phi: K1 on
+    the card and its plain twin on the CPU read one tap table, built on the
+    host, so the two builds are checked bit-equal first (float planes, or
+    codes and their scale parameters)."""
     import kbmod_tpu_torch.run_search as run_search
     from kbmod_tpu_torch.configuration import SearchConfiguration
     from kbmod_tpu_torch.fake_data.fake_data_creator import FakeDataSet, create_fake_times
-    from kbmod_tpu_torch.ops.psi_phi import psi_phi_array_from_numpy
     from kbmod_tpu_torch.search import StackSearch, Trajectory
 
     times = create_fake_times(10, t0=57130.2, obs_per_day=2, intra_night_gap=0.05)
@@ -575,28 +591,7 @@ def test_search_runner_on_card_equals_cpu(dev, tmp_path, monkeypatch, num_bytes,
     st = stack()
     cpu = StackSearch(st.sci, st.var, st.psfs, st.zeroed_times, num_bytes, device="cpu").psi_phi_array
     card = StackSearch(st.sci, st.var, st.psfs, st.zeroed_times, num_bytes, device=dev).psi_phi_array
-    if num_bytes == -1:
-        for a, b in zip(card.decoded_psi_phi()[:2], cpu.decoded_psi_phi()[:2]):
-            a, b = a.cpu().numpy(), b.numpy()
-            ulps = np.abs(a.view(np.int32).astype(np.int64) - b.view(np.int32).astype(np.int64))
-            print(f"float build, card against CPU: {int((ulps > 0).sum())} of {a.size} values differ, "
-                  f"at most {int(ulps.max())} ulp")
-            assert np.all(np.sign(a) == np.sign(b)) and ulps.max() <= 2
-        assert torch.equal(card.valid.cpu(), cpu.valid)
-    else:
-        for a, b in ((card.psi, cpu.psi), (card.phi, cpu.phi)):
-            d = (a.cpu().to(torch.int32) - b.to(torch.int32)).abs()
-            print(f"uint8 build, card against CPU: {int((d > 0).sum())} of {d.numel()} codes differ")
-            assert int(d.max()) <= 1
-    valid = None if num_bytes in (1, 2) else cpu.valid.numpy()
-    planes = (cpu.psi.numpy(), cpu.phi.numpy(), valid, cpu.times, cpu.meta)
-
-    class HandedOver(StackSearch):
-        def __init__(self, *args, device=None):
-            super().__init__(*args, device=device)
-            self.psi_phi_array = psi_phi_array_from_numpy(*planes, device=self.device)
-
-    monkeypatch.setattr(run_search, "StackSearch", HandedOver)
+    _assert_builds_equal(card, cpu)
     tables = []
     for where in (dev, "cpu"):
         config = SearchConfiguration(dict(
@@ -898,15 +893,15 @@ def test_resample_layer_on_card_equals_cpu(dev, method):
         assert rel.max() <= 1e-5
 
 
-def test_run_search_from_work_unit_on_card_equals_cpu(dev, tmp_path, monkeypatch):
+def test_run_search_from_work_unit_on_card_equals_cpu(dev):
     """run_search_from_work_unit on the card against device="cpu" on a small
-    reprojected WorkUnit: the same rows and sky positions. Both runs search
-    the CPU build's planes (K1's CPU twin may round an ulp or two away from
-    K1), handed over where the runner builds its StackSearch."""
+    reprojected WorkUnit (reprojected once on the CPU, so that both runs
+    search the same images; the card's resampling has its own test): each
+    builds its own psi/phi, bit-equal, and they find the same rows and sky
+    positions."""
     import kbmod_tpu_torch.run_search as run_search
     from kbmod_tpu_torch.configuration import SearchConfiguration
     from kbmod_tpu_torch.fake_data.fake_data_creator import FakeDataSet, create_fake_times
-    from kbmod_tpu_torch.ops.psi_phi import psi_phi_array_from_numpy
     from kbmod_tpu_torch.reprojection import reproject_work_unit
     from kbmod_tpu_torch.search import StackSearch, Trajectory
     from kbmod_tpu_torch.wcs_utils import make_fake_wcs
@@ -921,26 +916,69 @@ def test_run_search_from_work_unit_on_card_equals_cpu(dev, tmp_path, monkeypatch
         work.org_img_meta["per_image_wcs"][i] = make_fake_wcs(200.0, -7.0, 80, 96, 1.0 / 3600.0)
     common = make_fake_wcs(200.0, -7.0, 80, 96, 1.0 / 3600.0)
     common.crpix = common.crpix + np.array([0.3, 0.2])
-    cpu_work = reproject_work_unit(work, common, device="cpu")
-    st = cpu_work.im_stack
-    cpu = StackSearch(st.sci, st.var, st.psfs, st.zeroed_times, -1, device="cpu").psi_phi_array
-    planes = (cpu.psi.numpy(), cpu.phi.numpy(), cpu.valid.numpy(), cpu.times, cpu.meta)
-
-    class HandedOver(StackSearch):
-        def __init__(self, *args, device=None):
-            super().__init__(*args, device=device)
-            self.psi_phi_array = psi_phi_array_from_numpy(*planes, device=self.device)
-
-    monkeypatch.setattr(run_search, "StackSearch", HandedOver)
+    st = reproject_work_unit(work, common, device="cpu").im_stack
+    _assert_builds_equal(StackSearch(st.sci, st.var, st.psfs, st.zeroed_times, -1, device=dev).psi_phi_array,
+                         StackSearch(st.sci, st.var, st.psfs, st.zeroed_times, -1, device="cpu").psi_phi_array)
     tables = []
     for where in (dev, "cpu"):
-        wu = reproject_work_unit(work, common, device=where)
+        launches = conv_kernel.psi_phi_conv.launches
+        wu = reproject_work_unit(work, common, device="cpu")
         tables.append(run_search.SearchRunner(device=where).run_search_from_work_unit(wu))
+        assert (conv_kernel.psi_phi_conv.launches > launches) == (where is dev)
     got, ref = tables
     assert len(got) == len(ref) > 0
     for k in ("x", "y", "vx", "vy", "obs_count", "likelihood", "flux", "pred_x", "pred_y", "global_ra",
               "global_dec", "img_ra", "img_dec"):
         np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+
+
+def test_filter_and_stamps_tools_on_card_equal_cpu(dev, tmp_path):
+    """kbmod_filter --workunit (the curves rebuilt by K1 and the curve
+    gathers, then sigma-G) and kbmod_stamps on the card against --device
+    cpu on the same files: the same rows in the same order, curves,
+    obs_valid, likelihood and flux bit-equal; the stamps' sum, median and
+    cube equal, mean within 1e-6 relative (test_batched_coadds_on_card_equal_cpu)."""
+    from kbmod_tpu_torch.cmdline import (kbmod_create_test_data, kbmod_filter, kbmod_search, kbmod_stamps,
+                                         kbmod_strip_results)
+    from kbmod_tpu_torch.configuration import SearchConfiguration
+    from kbmod_tpu_torch.results import Results
+
+    wu, cfg = str(tmp_path / "wu.fits"), str(tmp_path / "cfg.yaml")
+    kbmod_create_test_data.main([f"--outfile={wu}", "--num_times=12", "--width=96", "--height=80",
+                                 "--num_objects=3", "--flux=500", "--seed=7", "--mask_fraction=0.02"])
+    SearchConfiguration.from_dict({
+        "generator_config": {"name": "EclipticCenteredSearch", "velocities": [0.0, 60.0, 9],
+                             "angles": [-3.2, 3.2, 9], "angle_units": "radian", "given_ecliptic": 0.0},
+        "num_obs": 4, "lh_level": 8.0, "compute_ra_dec": False}).to_file(cfg)
+    found = str(tmp_path / "found.ecsv")
+    kbmod_search.main(["--workunit", wu, "--outfile", found, "--config", cfg, "--device", "cpu"])
+    stripped = str(tmp_path / "stripped.ecsv")
+    kbmod_strip_results.main([f"--input={found}", f"--outfile={stripped}", "--cols=psi_curve,phi_curve"])
+    tables = {}
+    for where in ("cuda", "cpu"):
+        launches = conv_kernel.psi_phi_conv.launches
+        filtered, stamped = str(tmp_path / f"f_{where}.ecsv"), str(tmp_path / f"s_{where}.ecsv")
+        kbmod_filter.main([f"--input={stripped}", f"--outfile={filtered}", f"--workunit={wu}",
+                           "--sigma_g_bnds=25,75", "--device", where])
+        assert (conv_kernel.psi_phi_conv.launches > launches) == (where == "cuda")
+        kbmod_stamps.main([f"--input={filtered}", f"--outfile={stamped}", f"--workunit={wu}",
+                           "--coadds=mean,median,sum", "--all_stamps", "--radius=6", "--device", where])
+        tables[where] = Results.read_table(stamped)
+    got, ref = tables["cuda"], tables["cpu"]
+    assert len(got) == len(ref) > 0 and got.colnames == ref.colnames
+    stored = Results.read_table(found)
+    for k in ref.colnames:
+        a, b = np.asarray(got[k]), np.asarray(ref[k])
+        if k == "coadd_mean":
+            np.testing.assert_allclose(a, b, rtol=1e-6, atol=0, err_msg=k)
+        elif a.dtype.kind == "f":
+            np.testing.assert_array_equal(a.view(np.int32 if a.dtype == np.float32 else np.int64),
+                                          b.view(np.int32 if b.dtype == np.float32 else np.int64), err_msg=k)
+        else:
+            assert a.tolist() == b.tolist(), k
+    # The CPU search stored the same curves the card rebuilt.
+    for k in ("psi_curve", "phi_curve"):
+        np.testing.assert_array_equal(np.asarray(got[k]), np.asarray(stored[k]), err_msg=k)
 
 
 # K2 in the trajectory explorer's regimes: refine_linear_trajectory keeps
@@ -979,7 +1017,7 @@ def test_k2_explorer_shapes_match_twin(dev, name):
     assert int((ref[1][-1] >= 0).sum()) > 0, "no list filled to its last slot"
 
 
-def test_explorer_on_card_equals_cpu(dev, monkeypatch):
+def test_explorer_on_card_equals_cpu(dev):
     """refine_all_results (K = 1 windows, one psi/phi build for every row)
     and evaluate_around_linear_trajectory (a pencil of more than 64, in the
     maps) on the card against device="cpu": the same rows (x, y, vx, vy and
@@ -987,13 +1025,11 @@ def test_explorer_on_card_equals_cpu(dev, monkeypatch):
     the row's sums, (T+1) u sum|psi| / sqrt(sum phi) + 2 u |lh| (flux: over
     sum phi), since the assembly re-scores each row with a torch sum over
     its samples, which adds in one order on the card and another on the
-    CPU. Both search the CPU build's planes (K1's CPU twin may round an ulp
-    or two away from K1), handed over where the explorer builds its
-    StackSearch."""
+    CPU. Each side builds its own psi/phi; the builds are checked bit-equal
+    first (K1 and its twin read one tap table, built on the host)."""
     import kbmod_tpu_torch.trajectory_explorer as te
     from kbmod_tpu_torch.configuration import SearchConfiguration
     from kbmod_tpu_torch.fake_data.fake_data_creator import FakeDataSet, create_fake_times
-    from kbmod_tpu_torch.ops.psi_phi import psi_phi_array_from_numpy
     from kbmod_tpu_torch.results import Results
     from kbmod_tpu_torch.search import StackSearch, Trajectory
 
@@ -1004,14 +1040,9 @@ def test_explorer_on_card_equals_cpu(dev, monkeypatch):
         ds.insert_object(trj)
     st = ds.stack_py
     cpu = StackSearch(st.sci, st.var, st.psfs, st.zeroed_times, -1, device="cpu").psi_phi_array
+    _assert_builds_equal(StackSearch(st.sci, st.var, st.psfs, st.zeroed_times, -1, device=dev).psi_phi_array, cpu)
     planes = (cpu.psi.numpy(), cpu.phi.numpy(), cpu.valid.numpy(), cpu.times, cpu.meta)
 
-    class HandedOver(StackSearch):
-        def __init__(self, *args, device=None):
-            super().__init__(*args, device=device)
-            self.psi_phi_array = psi_phi_array_from_numpy(*planes, device=self.device)
-
-    monkeypatch.setattr(te, "StackSearch", HandedOver)
     config = SearchConfiguration.from_dict({"num_obs": 6})
     rough = [(26, 29, 5.5, 2.5), (24, 31, 6.5, 1.5), (71, 56, -4.5, -1.5)]
     out = []
