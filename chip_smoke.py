@@ -122,7 +122,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    the maps), ``evaluate_linear_trajectory`` and
    ``core.shift_and_stack.generate_psi_phi_images`` (K1, equal to the
    search's plane 0), and K2 at both new shapes against its twin;
-16. each kernel's time at the main path's shapes beside its twin's, its
+16. survey: the ported entry-point scripts' functions
+   (``kbmod_tpu_torch/scripts/``): the reference's regression
+   configuration at full size (``regression.run``: 20 x 1024 x 512, 20
+   objects, 2 starting off the chip, the 26 x 52 EclipticCenteredSearch
+   grid, the default sigma-G pool, ``run_search_from_work_unit``; K1, K2,
+   no twin; all 20 recovered and the file's metadata read back); the
+   pipeline gate (``survey_pipeline_gate.run``) at T = 100 and the full
+   33,153-candidate grid on a 2048 x 2048 frame (the script's 4096 cut for
+   time), row tiles, uint8 (K1, K5, no twin; 20 of 20 in the final file,
+   the route, the phase walls, the peak RSS, the device peak within
+   ``search_memory_budget``); ``survey_scale.run`` at the same size over
+   the 12-day default lattice, its 64 x 64 centre window bit-equal to the
+   twin;
+17. each kernel's time at the main path's shapes beside its twin's, its
    bound and (K1) cuDNN's grouped convolution, as one JSON line (K2 and K5
    at both of their main-path shapes: the full frame at K = 8 and the
    sigma-G band at K = 32, each held against the twin); K2 and K3 with
@@ -131,7 +144,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``midscale_kernel`` shapes (T = 64, 2048 x 2048, C = 33,153, K = 8);
    and K6's three modes at the script's defaults and at NG = 3,015;
    launches summed over every path above;
-17. as the last line, {"ok": true, "device": {...}}.
+18. as the last line, {"ok": true, "device": {...}}.
 
 Imports nothing of the JAX package.
 """
@@ -426,16 +439,6 @@ def _code_stack(rng, T, H, W, bits, zeros=0.05):
     return psi, phi
 
 
-def _planes(psi, phi, em, dev):
-    """EncodedPlanes whose code planes are views into one code-pair tensor,
-    as a PsiPhiArray holds them."""
-    from kbmod_tpu_torch.ops.psi_phi import code_pair_views, interleave_code_pairs
-    from kbmod_tpu_torch.ops.search import EncodedPlanes
-
-    pairs = interleave_code_pairs(torch.as_tensor(psi, device=dev), torch.as_tensor(phi, device=dev))
-    return EncodedPlanes(*code_pair_views(pairs, psi.shape[2]), em, pairs)
-
-
 # (kernel, code bits, T, H, W, C): K3 on uint16 and on uint8 past K4's T
 # limit, K4 at a short T and at its 16-bit field limit (257), K5 at the
 # main path's T, at the 16-bit field limit and past it.
@@ -459,7 +462,7 @@ def check_encoded(dev):
     expansion against the twin without dedup. Returns the largest
     |kernel - twin| lh per kernel."""
     from kbmod_tpu_torch.ops import search_encoded_kernel as ek
-    from kbmod_tpu_torch.ops.search import trajectory_offsets
+    from kbmod_tpu_torch.ops.search import EncodedPlanes, trajectory_offsets
     from kbmod_tpu_torch.ops.search_encoded import search_topk_encoded
     from kbmod_tpu_torch.ops.search_plan import _plan_groups
 
@@ -469,7 +472,7 @@ def check_encoded(dev):
         rng = np.random.default_rng(T + bits)
         psi, phi = _code_stack(rng, T, H, W, bits)
         em = MIDSCALE_EM if bits == 8 else np.array([-6.0, 12.0 / 65534, 0.1, 4.0 / 65534], np.float32)
-        planes = _planes(psi, phi, em, dev)
+        planes = EncodedPlanes.from_codes(psi, phi, em, dev)
         times = np.sort(rng.uniform(0, 3.0, T))
         times[0] = 0.0
         vxs = rng.uniform(-20, 20, C).astype(np.float32)
@@ -526,7 +529,7 @@ def check_encoded(dev):
     rng = np.random.default_rng(5)
     T, H, W = 12, 120, 140
     psi, phi = _code_stack(rng, T, H, W, 8)
-    planes = _planes(psi, phi, MIDSCALE_EM, dev)
+    planes = EncodedPlanes.from_codes(psi, phi, MIDSCALE_EM, dev)
     g = np.linspace(-1.5, 1.5, 13, dtype=np.float32)
     vxs, vys = (a.ravel() for a in np.meshgrid(g, g))
     dxs, dys = trajectory_offsets(vxs, vys, np.linspace(0.0, 2.0, T))
@@ -549,7 +552,7 @@ def check_long_t(dev):
     images against their twins: the grouped kernels reload their tables
     every 63 steps. Returns the largest |kernel - twin| lh per kernel."""
     from kbmod_tpu_torch.ops import search_encoded_kernel as ek
-    from kbmod_tpu_torch.ops.search import trajectory_offsets
+    from kbmod_tpu_torch.ops.search import EncodedPlanes, trajectory_offsets
     from kbmod_tpu_torch.ops.search_kernel import search_topk, search_topk_shift
     from kbmod_tpu_torch.ops.search_plan import grouped_plan
 
@@ -575,7 +578,7 @@ def check_long_t(dev):
             bits = 8 if kernel == "K5" else 16
             psi, phi = _code_stack(rng, T, H, W, bits)
             em = MIDSCALE_EM if bits == 8 else np.array([-6.0, 12.0 / 65534, 0.1, 4.0 / 65534], np.float32)
-            planes = _planes(psi, phi, em, dev)
+            planes = EncodedPlanes.from_codes(psi, phi, em, dev)
             if kernel == "K5":
                 got = ek.search_grouped(planes, dx, dy, min_obs, 0.0, plan=grouped_plan(dys)[0], **kw)
             else:
@@ -673,35 +676,19 @@ def time_k6(dev):
 # Main path at full width
 # ----------------------------------------------------------------------
 
-def _kernels():
-    """The kernel wrappers, whose ``launches`` count their kernels, and the
-    plain twins, whose ``calls`` count theirs."""
-    from kbmod_tpu_torch.ops import search_encoded_kernel as ek
-    from kbmod_tpu_torch.ops.conv_kernel import psi_phi_conv, psi_phi_conv_plain
-    from kbmod_tpu_torch.ops.search_kernel import search_topk, search_topk_shift
-
-    from kbmod_tpu_torch.ops.exactrow_kernel import exactrow_accumulate, exactrow_accumulate_plain
-
-    kernels = {"psi_phi_conv": psi_phi_conv, "search_topk": search_topk, "search_encoded": ek.search_encoded,
-               "search_paired": ek.search_paired, "search_grouped": ek.search_grouped,
-               "exactrow_accumulate": exactrow_accumulate}
-    twins = {"psi_phi_conv_plain": psi_phi_conv_plain, "search_topk_shift": search_topk_shift,
-             "search_topk_encoded_shift": ek.search_topk_encoded_shift,
-             "exactrow_accumulate_plain": exactrow_accumulate_plain}
-    return kernels, twins
-
-
 def reset_counts():
-    kernels, twins = _kernels()
-    for fn in kernels.values():
-        fn.launches = 0
-    for fn in twins.values():
-        fn.calls = 0
+    """Every kernel's launch count and every twin's call count set to 0
+    (scripts/_common, by function name)."""
+    from kbmod_tpu_torch.scripts._common import reset_counts as reset
+
+    reset()
 
 
 def read_counts():
-    kernels, twins = _kernels()
-    return ({k: fn.launches for k, fn in kernels.items()}, {k: fn.calls for k, fn in twins.items()})
+    """({kernel: launches}, {twin: calls}) since :func:`reset_counts`."""
+    from kbmod_tpu_torch.scripts._common import read_counts as read
+
+    return read()
 
 
 def _check_best(tag, b, obj, min_obs):
@@ -2517,6 +2504,89 @@ def discovery_path(stack, obj, card, dev):
 
 
 # ----------------------------------------------------------------------
+# The regression and survey-scale entry points
+# ----------------------------------------------------------------------
+
+# The survey phase's frame and depth: the pipeline gate and survey_scale
+# at T = 100 and the full 33,153-candidate grid on a 2048 x 2048 frame (the
+# scripts' own default, 4096 x 4096, runs in calls of its own: about four
+# minutes, which this script's time limit does not hold).
+SURVEY_T = 100
+SURVEY_FRAME = 2048
+
+
+def survey_path(card, dev):
+    """The port's regression and survey entry points, through the ported
+    scripts' functions: the reference's regression configuration at full
+    size (20 x 1024 x 512, the 26 x 52 grid, the default sigma-G pool) via
+    ``run_search_from_work_unit`` (K1, K2; every object recovered, the
+    metadata read back); the pipeline gate at T = 100 and the full grid on
+    the survey frame (K1, K5; 20 of 20 in the final file, the device peak
+    within the budget); survey_scale's full-frame search over the 12-day
+    lattice at the same size, its centre window bit-equal to the twin. Each
+    is driven with the counts at 0 just before and read just after (the
+    window's twin after the search's launches are read). Returns the
+    launches of the driven calls."""
+    import tempfile
+
+    from kbmod_tpu_torch.ops.search import sigmag_pool_factor
+    from kbmod_tpu_torch.scripts import regression, survey_pipeline_gate, survey_scale
+    from kbmod_tpu_torch.scripts._common import phase_walls
+
+    total = {}
+
+    def add(tag, launches, twin_calls, kernels):
+        if min(launches[k] for k in kernels) <= 0 or max(twin_calls.values()) != 0:
+            raise AssertionError(f"survey {tag}: not through {kernels} alone: {launches}, {twin_calls}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    stack = regression.make_stack()
+    times, _ = regression.times_and_psf_sigmas()
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_counts()
+        t0 = time.perf_counter()
+        runner, results, loaded = regression.run(stack, f"{tmp}/regression.ecsv", regression.FULL_VELOCITIES, dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, twin_calls = read_counts()
+        missing = regression.check(loaded, stack, times)
+    walls = ", ".join(f"{k} {v:.2f}" for k, v in phase_walls(runner).items())
+    log(f"survey regression (20x1024x512, 26 x 52 grid, sigma-G pool x{sigmag_pool_factor()}): "
+        f"{len(results)} rows in {wall:.2f} s, {len(regression.TRJS) - len(missing)} of {len(regression.TRJS)} "
+        f"recovered; launches {launches}, twin calls {twin_calls}; phase walls (s): {walls}; {card}")
+    if missing:
+        raise AssertionError(f"survey regression: objects {missing} not recovered")
+    add("regression", launches, twin_calls, ("psi_phi_conv", "search_topk"))
+    del stack, runner, results, loaded
+
+    reset_counts()
+    gate = survey_pipeline_gate.run(T=SURVEY_T, hw=SURVEY_FRAME, device=dev, log=log)
+    launches, twin_calls = read_counts()
+    log(f"survey pipeline gate (T={SURVEY_T}, {SURVEY_FRAME}x{SURVEY_FRAME}, C=33153; the scripts' 4096 frame cut "
+        f"to {SURVEY_FRAME}): route {gate['route']}, {gate['recovered']} of {gate['objects']} recovered, "
+        f"build {gate['t_build']} s, pipeline {gate['t_pipeline']} s, peak RSS {gate['peak_rss_gib']} GiB, "
+        f"device peak {gate['device_peak_gib']} GiB against the budget {gate['budget_gib']} GiB; "
+        f"launches {launches}; {card}")
+    if not gate["mem"]:
+        raise AssertionError("survey pipeline gate: the device peak was not measured")
+    add("pipeline gate", launches, twin_calls, ("psi_phi_conv", "search_grouped"))
+    del gate
+    torch.cuda.empty_cache()
+
+    reset_counts()
+    sc = survey_scale.run(T=SURVEY_T, HW=SURVEY_FRAME, C=257 * 129, grid="default", device=dev, log=log)
+    route_kernel = {"grouped": "search_grouped", "paired": "search_paired"}.get(sc["route"].split("+")[-1],
+                                                                                 "search_encoded")
+    add("survey_scale", sc["launches"], sc["twin_calls"], (route_kernel,))
+    log(f"survey_scale ({SURVEY_FRAME}x{SURVEY_FRAME}, T={SURVEY_T}, C={sc['C']}): route {sc['route']}, "
+        f"{sc['run_s']:.3f} s a search (first {sc['first_s']:.3f} s), {sc['evals_per_s']:.4g} evals/s; window "
+        f"bit-equal to the twin ({sc['filled']} slots filled, twin {sc['twin_s']:.2f} s); {card}")
+    torch.cuda.empty_cache()
+    return total
+
+
+# ----------------------------------------------------------------------
 # Kernel times at the main path's shapes
 # ----------------------------------------------------------------------
 
@@ -2741,14 +2811,14 @@ def time_midscale(dev, T=64, size=2048, C=257 * 129, K=8):
     4, 64), the default survey grid, K = 8, min_obs 10. A 256-row band when
     one search over the full frame takes over 60 s."""
     from kbmod_tpu_torch.ops import search_encoded_kernel as ek
-    from kbmod_tpu_torch.ops.search import trajectory_offsets
+    from kbmod_tpu_torch.ops.search import EncodedPlanes, trajectory_offsets
     from kbmod_tpu_torch.ops.search_encoded import search_topk_encoded
     from kbmod_tpu_torch.ops.search_plan import _dedup_plan_cached
 
     rng = np.random.default_rng(42)
     psi = rng.integers(0, 256, (T, size, size), dtype=np.uint8)
     phi = rng.integers(1, 256, (T, size, size), dtype=np.uint8)
-    planes = _planes(psi, phi, MIDSCALE_EM, dev)
+    planes = EncodedPlanes.from_codes(psi, phi, MIDSCALE_EM, dev)
     del psi, phi
     vxs, vys = _default_survey_grid(C)
     dxs, dys = trajectory_offsets(vxs, vys, np.linspace(0.0, 4.0, T))
@@ -2858,6 +2928,7 @@ def main():
     launches_k6 = phase("K6 path", k6_path)
     launches_wu = phase("workunit and tools", workunit_path, stack, obj, card, dev)
     launches_disc, k2_disc = phase("discovery", discovery_path, stack, obj, card, dev)
+    launches_survey = phase("survey", survey_path, card, dev)
     t_timing = time.perf_counter()
     k1 = time_k1(stack, dev)
     T, H, W = len(stack.sci), *np.asarray(stack.sci[0]).shape
@@ -2904,7 +2975,8 @@ def main():
 
     launches = {k: launches_f[k] + launches_q[k] + launches_p.get(k, 0) + launches_s.get(k, 0)
                 + vetting["launches"].get(k, 0) + launches_c.get(k, 0) + launches_sh.get(k, 0)
-                + launches_prof.get(k, 0) + launches_wu.get(k, 0) + launches_disc.get(k, 0) for k in launches_f}
+                + launches_prof.get(k, 0) + launches_wu.get(k, 0) + launches_disc.get(k, 0)
+                + launches_survey.get(k, 0) for k in launches_f}
     entries = [
         entry("psi_phi_conv", "psi_phi_conv.cu", "conv_pallas.py:32", launches["psi_phi_conv"], err_k1, k1),
         entry("search_topk", "search_topk.cu", "search_pallas.py:182", launches["search_topk"],

@@ -204,6 +204,16 @@ class StampClassifier:
         if missing or unexpected:
             raise ValueError(f"CNN weights do not fit the model: missing {missing}, unexpected {unexpected}")
 
+    def save_weights(self, model_path):
+        """Write the weights as the JAX package's ``.npz`` archive (flat
+        ``params/...`` and ``batch_stats/...`` keys of its flax trees), which
+        both packages' ``load_weights`` read."""
+        state = {k: v.detach().cpu().numpy() for k, v in self.model.state_dict().items()}
+        params, stats = to_flax_params(state, self.model.stage_sizes, self.model.block_cls)
+        flat = {f"params/{k}": v for k, v in _flatten(params).items()}
+        flat.update({f"batch_stats/{k}": v for k, v in _flatten(stats).items()})
+        np.savez(model_path, **flat)
+
     def predict(self, stamps):
         """stamps: (N, W, W) or (N, 1, W, W) float array. Returns (N, 2)
         logits as numpy."""
@@ -261,6 +271,57 @@ def convert_flax_params(params, batch_stats, stage_sizes, block_cls):
     state["fc.weight"] = np.asarray(params["Dense_0"]["kernel"]).T
     state["fc.bias"] = np.asarray(params["Dense_0"]["bias"])
     return {k: torch.as_tensor(np.ascontiguousarray(v)) for k, v in state.items()}
+
+
+def to_flax_params(state, stage_sizes, block_cls):
+    """The JAX package's flax ``(params, batch_stats)`` trees of numpy arrays
+    from a torchvision-style state_dict of numpy arrays: the inverse of
+    :func:`convert_flax_params` (a copy of the JAX package's
+    ``convert_torch_state_dict``, numpy in place of jax arrays). OIHW convs
+    become HWIO, ``fc`` becomes the transposed ``Dense_0``; BatchNorm's
+    ``num_batches_tracked`` has no flax counterpart and is dropped."""
+    state = {k: np.asarray(v) for k, v in strip_wrapper_prefix(state).items()}
+
+    def conv(key):
+        return {"kernel": np.ascontiguousarray(np.transpose(state[key + ".weight"], (2, 3, 1, 0)))}
+
+    def bn(key):
+        p = {"scale": state[key + ".weight"], "bias": state[key + ".bias"]}
+        s = {"mean": state[key + ".running_mean"], "var": state[key + ".running_var"]}
+        return p, s
+
+    params, stats = {}, {}
+    params["Conv_0"] = conv("conv1")
+    params["BatchNorm_0"], stats["BatchNorm_0"] = bn("bn1")
+    n_convs = 3 if block_cls is Bottleneck else 2
+    block_name = "Bottleneck" if block_cls is Bottleneck else "BasicBlock"
+    block_idx = 0
+    for stage, num_blocks in enumerate(stage_sizes):
+        for b in range(num_blocks):
+            src = f"layer{stage + 1}.{b}"
+            bp, bs = {}, {}
+            for c in range(n_convs):
+                bp[f"Conv_{c}"] = conv(f"{src}.conv{c + 1}")
+                bp[f"BatchNorm_{c}"], bs[f"BatchNorm_{c}"] = bn(f"{src}.bn{c + 1}")
+            if f"{src}.downsample.0.weight" in state:
+                bp[f"Conv_{n_convs}"] = conv(f"{src}.downsample.0")
+                bp[f"BatchNorm_{n_convs}"], bs[f"BatchNorm_{n_convs}"] = bn(f"{src}.downsample.1")
+            name = f"{block_name}_{block_idx}"
+            params[name], stats[name] = bp, bs
+            block_idx += 1
+    params["Dense_0"] = {"kernel": np.ascontiguousarray(state["fc.weight"].T), "bias": state["fc.bias"]}
+    return params, stats
+
+
+def _flatten(tree, prefix=""):
+    out = {}
+    for key, value in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(value, dict):
+            out.update(_flatten(value, name + "/"))
+        else:
+            out[name] = np.asarray(value)
+    return out
 
 
 def _unflatten(flat):

@@ -28,7 +28,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from kbmod_tpu_torch.ops.psi_phi import _f32, _storage
+from kbmod_tpu_torch.ops.psi_phi import _f32, _storage, code_pair_views, interleave_code_pairs
 from kbmod_tpu_torch.ops.search_encoded import search_topk_encoded
 from kbmod_tpu_torch.ops.search_kernel import search_topk
 
@@ -129,6 +129,14 @@ class EncodedPlanes(NamedTuple):
     phi_codes: torch.Tensor  # (T, H, W) same dtype
     em: np.ndarray           # (4,) float32
     pairs: torch.Tensor = None
+
+    @classmethod
+    def from_codes(cls, psi, phi, em, device):
+        """Planes on ``device`` from (T, H, W) uint8/uint16 psi and phi
+        codes (numpy or torch), the code planes being views into one
+        interleaved code-pair tensor, as a PsiPhiArray holds them."""
+        pairs = interleave_code_pairs(torch.as_tensor(psi, device=device), torch.as_tensor(phi, device=device))
+        return cls(*code_pair_views(pairs, psi.shape[2]), np.asarray(em, np.float32), pairs)
 
     @property
     def shape(self):

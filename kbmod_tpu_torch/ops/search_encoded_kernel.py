@@ -38,7 +38,7 @@ import torch
 
 from kbmod_tpu_torch.ops import _build
 from kbmod_tpu_torch.ops.psi_phi import _codes_as_int, _f32, interleave_code_pairs
-from kbmod_tpu_torch.ops.search_kernel import FLT_MAX, allocate_maps
+from kbmod_tpu_torch.ops.search_kernel import FLT_MAX, allocate_maps, merge_chunk, twin_window_sums
 from kbmod_tpu_torch.ops.search_plan import GROUP_G, grouped_plan, staging_header_bytes, window_layout_cached
 
 # The kernels' numbers, as the profiler's launch labels name them.
@@ -186,56 +186,35 @@ def search_topk_encoded_shift(
         np.ones(C, dtype=bool) if cand_valid is None
         else torch.as_tensor(cand_valid).cpu().numpy().astype(bool).reshape(-1)
     )
-    # A sample counts only where both codes are non-zero.
-    pc, fc = _codes_as_int(psi_codes), _codes_as_int(phi_codes)
-    both = (pc > 0) & (fc > 0)
-    pc = torch.where(both, pc, 0)
-    fc = torch.where(both, fc, 0)
-    ob = both.to(torch.int32)
     em = np.asarray(em, dtype=np.float32).reshape(4)
     s_psi, d_psi = _f32(em[1], dev), _f32(em[0] - em[1], dev)
     s_phi, d_phi = _f32(em[3], dev), _f32(em[2] - em[3], dev)
     min_obs, min_lh = float(min_obs), float(min_lh)
     top = torch.full((K, SH, SW), -FLT_MAX, dtype=torch.float32, device=dev)
     topi = torch.full((K, SH, SW), -1, dtype=torch.int32, device=dev)
-    kidx = torch.arange(K, device=dev)[:, None, None]
     neg_inf = torch.full((), float("-inf"), device=dev)
-    for c in range(C):
-        sp = torch.zeros((SH, SW), dtype=torch.int32, device=dev)
-        sf = torch.zeros_like(sp)
-        so = torch.zeros_like(sp)
-        for t in range(T):
-            # Window rows i with 0 <= oy + i < H, columns j with 0 <= ox + j < W.
-            i0, i1 = max(0, -oy[c, t]), min(SH, H - oy[c, t])
-            j0, j1 = max(0, -ox[c, t]), min(SW, W - ox[c, t])
-            if i0 >= i1 or j0 >= j1:
-                continue
-            rows = slice(oy[c, t] + i0, oy[c, t] + i1)
-            cols = slice(ox[c, t] + j0, ox[c, t] + j1)
-            sp[i0:i1, j0:j1] += pc[t, rows, cols]
-            sf[i0:i1, j0:j1] += fc[t, rows, cols]
-            so[i0:i1, j0:j1] += ob[t, rows, cols]
+
+    def samples(rows, cols):
+        # A sample counts only where both codes are non-zero.
+        pc = _codes_as_int(psi_codes[:, rows, cols])
+        fc = _codes_as_int(phi_codes[:, rows, cols])
+        both = (pc > 0) & (fc > 0)
+        return torch.stack([torch.where(both, pc, 0), torch.where(both, fc, 0), both.to(torch.int32)], dim=-1)
+
+    for c0, c1, sums in twin_window_sums(samples, oy, ox, H, W, SH, SW, 3, torch.int32, dev):
+        sp, sf, so = sums.unbind(-1)
         obs = so.to(torch.float32)
         psi_s = s_psi * sp.to(torch.float32) + d_psi * obs
         phi_s = s_phi * sf.to(torch.float32) + d_phi * obs
         # IEEE sqrt (through float64, exact once rounded back) and division,
         # as the kernels' __fsqrt_rn and __fdiv_rn.
         lh = torch.where(phi_s > 0, psi_s / torch.sqrt(phi_s.double()).float(), -1.0)
-        ok = torch.full((SH, SW), bool(c_ok[c]), device=dev)
+        ok = torch.as_tensor(c_ok[c0:c1], device=dev)[:, None, None].expand_as(lh)
         if gate_min_obs:
-            ok &= obs >= min_obs
+            ok = ok & (obs >= min_obs)
         if gate_min_lh:
-            ok &= lh >= min_lh
-        new = torch.where(ok, lh, neg_inf)[None]
-        newi = int(cand_offset) + int(c)
-        # Rank-insert below every entry that is better, or equal with a
-        # smaller index; slots below the insertion point shift down one.
-        p = ((top > new) | ((top == new) & (topi < newi))).sum(dim=0)[None]
-        shifted = torch.cat([top[:1], top[:-1]])
-        shiftedi = torch.cat([topi[:1], topi[:-1]])
-        at_p, below = kidx == p, kidx > p
-        top = torch.where(at_p, new, torch.where(below, shifted, top))
-        topi = torch.where(at_p, newi, torch.where(below, shiftedi, topi))
+            ok = ok & (lh >= min_lh)
+        top, topi = merge_chunk(top, topi, torch.where(ok, lh, neg_inf), int(cand_offset) + c0)
     return top, topi.to(torch.int32)
 
 

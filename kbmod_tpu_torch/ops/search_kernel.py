@@ -48,6 +48,72 @@ def _lib():
     return _build.load("search_topk", _SIGNATURES)
 
 
+# (candidate, pixel) pairs whose sums a twin gathers at once: 2^26 on a
+# card (about 2 GB of indices, samples and sums), 2^22 on the host.
+TWIN_CHUNK_PAIRS = {"cuda": 1 << 26, "cpu": 1 << 22}
+# Whether a twin gathers a chunk's windows in one indexing op a step (on a
+# card) or adds each candidate's window as a slice (on the host).
+TWIN_BATCHED = {"cuda": True, "cpu": False}
+
+
+def twin_window_sums(samples, oy, ox, H, W, SH, SW, nval, dtype, dev):
+    """The per-candidate sums of the twins, a chunk of candidates at a time.
+
+    ``samples(rows, cols)`` returns the (T, h, w, nval) values the twin adds
+    at the plane's pixels [rows, cols] (zero where a sample does not count);
+    oy, ox: (C, T) int64 numpy window origins (offset plus the window's
+    first row or column). Only the planes' rows and columns that some
+    window reaches are taken, zero-padded where a window leaves the image,
+    so a pixel's sum adds a zero where the loop over candidates skips an
+    out-of-image step: the same float32 (or int32) adds in the same order,
+    t = 0 .. T-1. On a card one indexing op a step gathers the chunk's
+    windows (a slice a candidate would cost a launch each); on the host
+    each candidate's window is a slice, which the host adds fastest
+    (``TWIN_BATCHED``).
+    Yields (c0, c1, sums (c1 - c0, SH, SW, nval)).
+    """
+    C, T = oy.shape
+    if C == 0:
+        return
+    y_lo, x_lo = int(oy.min()), int(ox.min())
+    Hr, Wr = int(oy.max()) + SH - y_lo, int(ox.max()) + SW - x_lo
+    crop = torch.zeros((T, Hr, Wr, nval), dtype=dtype, device=dev)
+    r0, r1, c0_, c1_ = max(0, y_lo), min(H, y_lo + Hr), max(0, x_lo), min(W, x_lo + Wr)
+    if r0 < r1 and c0_ < c1_:
+        crop[:, r0 - y_lo : r1 - y_lo, c0_ - x_lo : c1_ - x_lo] = samples(slice(r0, r1), slice(c0_, c1_))
+    oy, ox = oy - y_lo, ox - x_lo
+    batched = TWIN_BATCHED[dev.type]
+    if batched:
+        oy_t, ox_t = torch.as_tensor(oy, device=dev), torch.as_tensor(ox, device=dev)
+        ar_h, ar_w = torch.arange(SH, device=dev)[:, None], torch.arange(SW, device=dev)[None, :]
+    per = max(1, TWIN_CHUNK_PAIRS[dev.type] // (SH * SW))
+    for c0 in range(0, C, per):
+        c1 = min(C, c0 + per)
+        acc = torch.zeros((c1 - c0, SH, SW, nval), dtype=dtype, device=dev)
+        for t in range(T):
+            if batched:
+                acc += crop[t][oy_t[c0:c1, t, None, None] + ar_h, ox_t[c0:c1, t, None, None] + ar_w]
+            else:
+                for j in range(c0, c1):
+                    acc[j - c0] += crop[t, oy[j, t] : oy[j, t] + SH, ox[j, t] : ox[j, t] + SW]
+        yield c0, c1, acc
+
+
+def merge_chunk(top, topi, new, first):
+    """Merge a chunk's (Cc, SH, SW) scores ``new`` (-inf where gated) of the
+    candidates ``first``, ``first`` + 1, .. into the (K, SH, SW) lists,
+    ranked by (lh desc, index asc): a stable descending sort of the lists
+    followed by the chunk in index order keeps, of equal scores, the list's
+    entries and then the lower index, as inserting each candidate in turn
+    below every entry that is better or equal does."""
+    K = top.shape[0]
+    idx = torch.arange(first, first + new.shape[0], dtype=torch.int32, device=new.device)
+    vals = torch.cat([top, new])
+    ids = torch.cat([topi, idx[:, None, None].expand_as(new)])
+    order = torch.sort(vals, dim=0, descending=True, stable=True).indices[:K]
+    return vals.gather(0, order), ids.gather(0, order)
+
+
 def search_topk_shift(
     psi, phi, valid, dxs, dys, min_obs, min_lh,
     *, x_min, x_max, y_min, y_max, k_results,
@@ -60,7 +126,11 @@ def search_topk_shift(
     (T, H, W) uint8; dxs, dys: (C, T) int32 offsets; ``cand_valid`` (C,)
     bool marks padding candidates False. Returns top_lh (K, SH, SW) float32
     (empty = -FLT_MAX) and top_idx (K, SH, SW) int32 (empty = -1), the
-    global index being ``cand_offset + c``.
+    global index being ``cand_offset + c``. The sums over t are float32
+    adds in time order (:func:`twin_window_sums`, a chunk of candidates at
+    a time), and each chunk is merged into the lists by (lh desc, index
+    asc) (:func:`merge_chunk`), the order of a rank-insert of each
+    candidate in turn.
     """
     search_topk_shift.calls += 1
     dev = psi.device
@@ -76,49 +146,28 @@ def search_topk_shift(
     min_lh = float(min_lh)
     top = torch.full((K, SH, SW), -FLT_MAX, dtype=torch.float32, device=dev)
     topi = torch.full((K, SH, SW), -1, dtype=torch.int32, device=dev)
-    kidx = torch.arange(K, device=dev)[:, None, None]
     neg_inf = torch.full((), float("-inf"), device=dev)
-    for c in range(len(ox)):
-        psi_s = torch.zeros((SH, SW), dtype=torch.float32, device=dev)
-        phi_s = torch.zeros_like(psi_s)
-        obs = torch.zeros_like(psi_s)
-        for t in range(T):
-            # Window rows i with 0 <= oy + i < H, columns j with 0 <= ox + j < W.
-            i0, i1 = max(0, -oy[c, t]), min(SH, H - oy[c, t])
-            j0, j1 = max(0, -ox[c, t]), min(SW, W - ox[c, t])
-            if i0 >= i1 or j0 >= j1:
-                continue
-            rows = slice(oy[c, t] + i0, oy[c, t] + i1)
-            cols = slice(ox[c, t] + j0, ox[c, t] + j1)
-            ps, fs = psi[t, rows, cols], phi[t, rows, cols]
-            if has_masked:
-                ok = valid[t, rows, cols] != 0
-                ps = torch.where(ok, ps, 0.0)
-                fs = torch.where(ok, fs, 0.0)
-                mf = ok.to(torch.float32)
-            else:
-                mf = torch.ones_like(ps)
-            psi_s[i0:i1, j0:j1] += ps
-            phi_s[i0:i1, j0:j1] += fs
-            obs[i0:i1, j0:j1] += mf
+
+    def samples(rows, cols):
+        ps, fs = psi[:, rows, cols], phi[:, rows, cols]
+        if not has_masked:
+            return torch.stack([ps, fs, torch.ones_like(ps)], dim=-1)
+        ok = valid[:, rows, cols] != 0
+        return torch.stack([torch.where(ok, ps, 0.0), torch.where(ok, fs, 0.0), ok.to(torch.float32)], dim=-1)
+
+    for c0, c1, sums in twin_window_sums(samples, oy, ox, H, W, SH, SW, 3, torch.float32, dev):
+        psi_s, phi_s, obs = sums.unbind(-1)
         # IEEE float32 sqrt then division, as the kernel's __fsqrt_rn and
         # __fdiv_rn. The sqrt goes through float64 (exact when rounded back to
         # float32) because PyTorch's vectorized float32 sqrt on the CPU is not
         # always correctly rounded.
         lh = torch.where(phi_s > 0, psi_s / torch.sqrt(phi_s.double()).float(), -1.0)
-        ok = torch.full((SH, SW), bool(c_ok[c]), device=dev)
+        ok = torch.as_tensor(c_ok[c0:c1], device=dev)[:, None, None].expand_as(lh)
         if gate_min_obs:
-            ok &= obs >= min_obs
+            ok = ok & (obs >= min_obs)
         if gate_min_lh:
-            ok &= lh >= min_lh
-        new = torch.where(ok, lh, neg_inf)
-        # Rank-insert at p = #(top >= new); slots below p shift down one.
-        p = (top >= new[None]).sum(dim=0)[None]
-        shifted = torch.cat([top[:1], top[:-1]])
-        shiftedi = torch.cat([topi[:1], topi[:-1]])
-        at_p, below = kidx == p, kidx > p
-        top = torch.where(at_p, new[None], torch.where(below, shifted, top))
-        topi = torch.where(at_p, int(cand_offset) + c, torch.where(below, shiftedi, topi))
+            ok = ok & (lh >= min_lh)
+        top, topi = merge_chunk(top, topi, torch.where(ok, lh, neg_inf), int(cand_offset) + c0)
     return top, topi.to(torch.int32)
 
 

@@ -14,13 +14,13 @@ candidate, C rolls the row once per slot and extracts per candidate
 """
 
 import argparse
-import subprocess
 
 import numpy as np
 import torch
 
 from kbmod_tpu_torch.device import resolve_device
 from kbmod_tpu_torch.ops.exactrow_kernel import MODES, exactrow_accumulate
+from kbmod_tpu_torch.scripts._common import card_line
 
 
 def make_inputs(th=32, w4=512, t=64, ng=64, device=None):
@@ -44,15 +44,6 @@ def time_mode(tbl, buf, mode, group=8, th=32, reps=5):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def card_line():
-    """The card's name and power limit, as nvidia-smi gives them."""
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def main(argv=None):

@@ -9,9 +9,12 @@ PyYAML, pandas, pyarrow, psutil and h5py blocked too, and the command-line
 tools' chain (create test data, search, strip, filter with the curves
 rebuilt from the WorkUnit, stamps, stats, the Visualizer's stamps) with
 matplotlib, pyarrow, scikit-learn and pandas blocked; every module of the
-JAX package but its two Pallas files has a counterpart in the port; no
-module of the port (``scripts/`` included) nor ``chip_smoke.py`` imports
-JAX, flax or the JAX package at any depth of its code, and an entry point
+JAX package but its two Pallas files has a counterpart in the port, and
+every script of the JAX side's ``scripts/`` a counterpart in
+``kbmod_tpu_torch/scripts/`` or a place in a named list of TPU-only
+scripts with its reason; no module of the port (``scripts/`` included) nor
+``chip_smoke.py`` imports JAX, flax or the JAX package at any depth of its
+code, no port script imports the JAX side's ``scripts``, and an entry point
 left to its default device (CUDA) raises on a host without a card."""
 
 import ast
@@ -352,12 +355,53 @@ def test_every_jax_module_has_a_counterpart():
     assert sorted(jax_files - port) == ["ops/conv_pallas.py", "ops/search_pallas.py"]
 
 
+# The JAX side's scripts/ and their counterparts in kbmod_tpu_torch/scripts/.
+PORTED_SCRIPTS = {
+    "regression_tpu.py": "regression.py", "e2e_tpu.py": "e2e.py", "steady_state.py": "steady_state.py",
+    "scale_gate.py": "scale_gate.py", "survey_scale.py": "survey_scale.py",
+    "survey_pipeline_gate.py": "survey_pipeline_gate.py", "survey_full_grid.py": "survey_full_grid.py",
+    "snap_sweep.py": "snap_sweep.py", "sigmag_miss_rate.py": "sigmag_miss_rate.py", "long_t.py": "long_t.py",
+    "psi_phi_bench.py": "psi_phi_bench.py", "coadd_bench.py": "coadd_bench.py", "prewarm.py": "prewarm.py",
+    "exactrow_microbench.py": "exactrow_microbench.py",
+}
+# The JAX side's scripts with no counterpart, each with its reason.
+UNPORTED_SCRIPTS = {
+    "pallas_bench.py": "times the float Pallas kernel on the TPU; chip_smoke.py's kernel checks and "
+                       "scripts/grouped_timing.py time K2",
+    "pallas_bench_encoded.py": "times the encoded Pallas kernel on the TPU; chip_smoke.py and "
+                               "scripts/grouped_timing.py time K3-K5",
+    "pallas_tpu_trial.py": "a first trial of the Pallas kernels on the TPU; chip_smoke.py checks K1-K6",
+    "pallas_tpu_only.py": "runs the Pallas kernels on the TPU alone; chip_smoke.py checks K1-K6",
+    "pallas_bisect.py": "bisects the TPU kernel's lane and sublane rolls, a TPU mechanism",
+    "pallas_tile_sweep.py": "sweeps VMEM row tiles, a TPU mechanism",
+    "grouped_th_sweep.py": "sweeps the grouped kernel's VMEM row tiles, a TPU mechanism",
+    "gen_api_docs.py": "goes with the worked-examples slice (ROADMAP Queue 1)",
+    "gen_notebooks.py": "goes with the worked-examples slice (ROADMAP Queue 1)",
+}
+_JAX_SCRIPTS = sorted(name for name in os.listdir(os.path.join(REPO_ROOT, "scripts")) if name.endswith(".py"))
+
+
+@pytest.mark.parametrize("name", _JAX_SCRIPTS)
+def test_every_jax_script_has_a_counterpart_or_a_reason(name):
+    assert (name in PORTED_SCRIPTS) != (name in UNPORTED_SCRIPTS), name
+    if name in PORTED_SCRIPTS:
+        assert f"kbmod_tpu_torch/scripts/{PORTED_SCRIPTS[name]}" in _PORT_FILES
+    else:
+        assert UNPORTED_SCRIPTS[name]
+
+
+def test_port_scripts_are_listed():
+    port_scripts = {os.path.basename(p) for p in _PORT_FILES if p.startswith("kbmod_tpu_torch/scripts/")}
+    assert set(PORTED_SCRIPTS.values()) | {"__init__.py", "_common.py", "grouped_timing.py", "twin_forms.py"} == port_scripts
+
+
 @pytest.mark.parametrize("path", _PORT_FILES)
 def test_port_module_imports_no_jax(path):
     """Every module of the port, at any depth of its code, imports neither
     JAX, flax nor the JAX package (relative imports stay inside the port)."""
     names = _imported_modules(os.path.join(REPO_ROOT, path))
-    bad = [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "flax", "kbmod_tpu")]
+    banned = ("jax", "jaxlib", "flax", "kbmod_tpu") + (("scripts",) if "/scripts/" in path else ())
+    bad = [n for n in names if n.split(".")[0] in banned]
     assert not bad, f"{path} imports {bad}"
 
 

@@ -7,7 +7,9 @@ against the JAX package's on the CPU.
   (whose BatchNorm statistics and scales are drawn at random, so the
   conversion is exercised), both in memory and through the JAX package's
   ``.npz`` archive; a torchvision-style ``state_dict`` with the reference
-  wrapper's ``model.`` prefix loaded by both packages. 21 x 21 stamps, a
+  wrapper's ``model.`` prefix loaded by both packages; the port's
+  ``save_weights`` archive loaded by the JAX package, the JAX package's
+  loaded by the port, and the port's own round trip bit-equal. 21 x 21 stamps, a
   batch of 4. Tolerance: logits within 1e-5 * (1 + max |logit|) of the
   batch (float32 convolutions in another order: XLA against PyTorch's CPU
   kernels); the predicted class is equal wherever the two logits of a
@@ -124,6 +126,66 @@ def test_torchvision_state_dict_loads_in_both(tmp_path):
     with torch.no_grad():
         direct = model.eval()(torch.as_tensor(stamps[:, None])).numpy()
     np.testing.assert_array_equal(got, direct)
+
+
+def _port_classifier(model_type, seed=21):
+    """A seeded port classifier with its BatchNorm statistics and scales
+    drawn at random (torch.Generator), so that every tensor kind is saved."""
+    clf = tcnn.StampClassifier(model_type, 21, seed=seed, device="cpu")
+    gen = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for mod in clf.model.modules():
+            if isinstance(mod, torch.nn.BatchNorm2d):
+                mod.running_mean.normal_(0.0, 0.05, generator=gen)
+                mod.running_var.uniform_(0.5, 1.5, generator=gen)
+                mod.weight.uniform_(0.5, 1.5, generator=gen)
+                mod.bias.normal_(0.0, 0.05, generator=gen)
+    return clf
+
+
+@pytest.mark.parametrize("model_type", ["resnet18", "resnet50"])
+def test_save_weights_loads_in_jax(tmp_path, model_type):
+    """Port save -> the JAX package's load_weights: the same logits as the
+    port's (TOL, as above), and the archive has the JAX layout's keys."""
+    clf = _port_classifier(model_type)
+    path = tmp_path / f"{model_type}.npz"
+    clf.save_weights(str(path))
+    stamps = _stamps(seed=23)
+    ref = jcnn.StampClassifier(model_type=model_type, stamp_width=21, model_path=str(path))
+    _assert_logits(clf.predict(stamps), ref.predict(stamps))
+    want_keys = set(np.load(str(path)).files)
+    jax_path = tmp_path / f"{model_type}_jax.npz"
+    ref.save_weights(str(jax_path))
+    assert set(np.load(str(jax_path)).files) == want_keys
+
+
+@pytest.mark.parametrize("model_type", ["resnet18", "resnet50"])
+def test_jax_save_weights_loads_in_port(tmp_path, model_type):
+    """JAX save -> port load: the same logits (TOL)."""
+    ref = _jax_classifier(model_type, seed=5)
+    path = tmp_path / f"{model_type}.npz"
+    ref.save_weights(str(path))
+    stamps = _stamps(seed=29)
+    got = tcnn.StampClassifier(model_type, 21, model_path=str(path), device="cpu").predict(stamps)
+    _assert_logits(got, ref.predict(stamps))
+
+
+@pytest.mark.parametrize("model_type", ["resnet18", "resnet50"])
+def test_save_weights_round_trips_bit_equal(tmp_path, model_type):
+    """Port save -> port load: every parameter and buffer bit-equal (but
+    ``num_batches_tracked``, which the flax layout does not hold), and so
+    the logits."""
+    clf = _port_classifier(model_type, seed=31)
+    path = tmp_path / f"{model_type}.npz"
+    clf.save_weights(str(path))
+    back = tcnn.StampClassifier(model_type, 21, model_path=str(path), device="cpu")
+    want, got = clf.model.state_dict(), back.model.state_dict()
+    assert set(want) == set(got)
+    for key, value in want.items():
+        if not key.endswith("num_batches_tracked"):
+            assert torch.equal(got[key], value), key
+    stamps = _stamps(seed=37)
+    np.testing.assert_array_equal(back.predict(stamps), clf.predict(stamps))
 
 
 def test_random_init_is_seeded_and_checked():
