@@ -135,7 +135,17 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``search_memory_budget``); ``survey_scale.run`` at the same size over
    the 12-day default lattice, its 64 x 64 centre window bit-equal to the
    twin;
-17. each kernel's time at the main path's shapes beside its twin's, its
+17. examples: the port's worked examples (``kbmod_tpu_torch/examples/``)
+   through their default device, the card, with their own asserts: 01-06,
+   09, 10, 12 and 13 (07, 08 and 11 plot with matplotlib, which the card's
+   machine lacks: CPU tests only), each driven with the counts at 0 and read
+   after (01, 03 and 05 through K1 and K2, 12 and 13 through K2; no twin
+   anywhere), each wall; then the five search examples again on the host
+   with ``DEVICE="cpu"`` in this process: x, y, vx, vy, obs_count and the
+   row order as the card's (rows whose lh lie within each other's rounding
+   may trade places), lh and flux within twice ROADMAP Queue 3's float32
+   bound of the row's sums;
+18. each kernel's time at the main path's shapes beside its twin's, its
    bound and (K1) cuDNN's grouped convolution, as one JSON line (K2 and K5
    at both of their main-path shapes: the full frame at K = 8 and the
    sigma-G band at K = 32, each held against the twin); K2 and K3 with
@@ -144,7 +154,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``midscale_kernel`` shapes (T = 64, 2048 x 2048, C = 33,153, K = 8);
    and K6's three modes at the script's defaults and at NG = 3,015;
    launches summed over every path above;
-18. as the last line, {"ok": true, "device": {...}}.
+19. as the last line, {"ok": true, "device": {...}}.
 
 Imports nothing of the JAX package.
 """
@@ -2587,6 +2597,213 @@ def survey_path(card, dev):
 
 
 # ----------------------------------------------------------------------
+# The worked examples
+# ----------------------------------------------------------------------
+
+# The port's worked examples (kbmod_tpu_torch/examples/) this phase runs on
+# the card, with the kernels each search example must launch; the others run
+# no kernel. 07, 08 and 11 plot with matplotlib, which the card's machine
+# lacks: they run in the CPU tests only.
+EXAMPLES_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "kbmod_tpu_torch", "examples")
+EXAMPLES_ON_CARD = {
+    "01_kbmod_demo.py": ("psi_phi_conv", "search_topk"),
+    "02_create_fake_data.py": (),
+    "03_trajectory_explorer.py": ("psi_phi_conv", "search_topk"),
+    "04_reprojection_demo.py": (),
+    "05_results_and_filtering.py": ("psi_phi_conv", "search_topk"),
+    "06_region_search.py": (),
+    "09_clustering_evaluation.py": (),
+    "10_known_objects.py": (),
+    "12_multichip_sharding.py": ("search_topk",),
+    "13_checkpoint_resume.py": ("search_topk",),
+}
+EXAMPLES_CPU_ONLY = ("07_visualization.py", "08_fake_analysis.py", "11_results_rater.py")
+ROW_KEY = ("x", "y", "vx", "vy", "obs_count")
+
+
+def run_example(name, device=None):
+    """The example's globals after it ran as a script, on ``device`` (None:
+    its default, the card), its printed lines kept out of this log."""
+    import contextlib
+    import io
+    import runpy
+
+    init = {} if device is None else {"DEVICE": device}
+    with contextlib.redirect_stdout(io.StringIO()):
+        return runpy.run_path(os.path.join(EXAMPLES_DIR, name), init_globals=init, run_name="__main__")
+
+
+def _row_bounds(rows, T, sums):
+    """Twice ROADMAP Queue 3's float32 bound of each row's lh and flux from
+    its sums (sum|psi|, sum phi): (T + 1) u sum|psi| / sqrt(sum phi) + 2 u |lh|
+    and (T + 1) u (sum|psi| / sum phi + |flux|) + 2 u |flux|."""
+    abs_psi, phi_sum = sums
+    u = 2.0 ** -24
+    lh, flux = np.abs(rows["lh"]), np.abs(rows["flux"])
+    phi_sum = np.maximum(phi_sum, 1e-300)
+    return (2 * ((T + 1) * u * abs_psi / np.sqrt(phi_sum) + 2 * u * lh),
+            2 * ((T + 1) * u * (abs_psi / phi_sum + flux) + 2 * u * flux))
+
+
+def _plane_sums(rows, planes, times):
+    """(sum|psi|, sum phi) of each row over the samples it reads from the
+    float planes (psi, phi zero where invalid)."""
+    from kbmod_tpu_torch.ops.search import trajectory_offsets
+
+    psi, phi, valid = (np.asarray(p.cpu() if torch.is_tensor(p) else p) for p in planes)
+    T, H, W = psi.shape
+    dxs, dys = trajectory_offsets(rows["vx"], rows["vy"], times)
+    px, py = rows["x"].astype(np.int64)[:, None] + dxs, rows["y"].astype(np.int64)[:, None] + dys
+    ok = (px >= 0) & (px < W) & (py >= 0) & (py < H)
+    tt = np.broadcast_to(np.arange(T), px.shape)
+    px, py = np.clip(px, 0, W - 1), np.clip(py, 0, H - 1)
+    ok &= valid[tt, py, px] > 0
+    return (np.where(ok, np.abs(psi[tt, py, px].astype(np.float64)), 0.0).sum(axis=1),
+            np.where(ok, phi[tt, py, px].astype(np.float64), 0.0).sum(axis=1))
+
+
+def _curve_sums(table, valid_only):
+    """(sum|psi|, sum phi) of each row over its curves, every finite sample
+    or only those of ``obs_valid``."""
+    psi, phi = (np.asarray(table[c], np.float64) for c in ("psi_curve", "phi_curve"))
+    ok = np.isfinite(psi) & np.isfinite(phi)
+    if valid_only:
+        ok &= np.asarray(table["obs_valid"], bool)
+    return np.where(ok, np.abs(psi), 0.0).sum(axis=1), np.where(ok, phi, 0.0).sum(axis=1)
+
+
+def _as_rows(rows):
+    """x, y, vx, vy, obs_count, lh and flux as numpy arrays from a core
+    search's dict, a Results table or a list of Trajectory."""
+    if isinstance(rows, dict):
+        return {k: np.asarray(rows[k]) for k in ROW_KEY + ("lh", "flux")}
+    if isinstance(rows, list):
+        return {k: np.array([getattr(t, k) for t in rows]) for k in ROW_KEY + ("lh", "flux")}
+    out = {k: np.asarray(rows[k]) for k in ROW_KEY + ("flux",)}
+    out["lh"] = np.asarray(rows["likelihood"])
+    return out
+
+
+def example_rows(name, env):
+    """{label: rows} of a search example's outputs (:func:`_as_rows`)."""
+    labels = {"01_kbmod_demo.py": ("results",), "03_trajectory_explorer.py": ("row", "grid", "refined"),
+              "05_results_and_filtering.py": ("trjs", "results"),
+              "12_multichip_sharding.py": ("res_single", "res_sharded", "res_pix"),
+              "13_checkpoint_resume.py": ("res1", "res2", "res3")}[name]
+    return {label: _as_rows(env[label]) for label in labels}
+
+
+def example_sums(name, env, label, rows):
+    """(T, [(sum|psi|, sum phi) per row, ...]): the sums a row set's lh and
+    flux may be built from, from the example's own planes or curves (its
+    bound is the largest over them)."""
+    sums = []
+    if label in ("results", "row"):
+        table = env[label]
+        sums += [_curve_sums(table, True), _curve_sums(table, False)]
+        T = np.asarray(table["psi_curve"]).shape[1]
+    if name.startswith(("03", "05")):
+        arr = (env["explorer"].search if name.startswith("03") else env["search"]).psi_phi_array
+        sums.append(_plane_sums(rows, (arr.psi, arr.phi, arr.valid), np.asarray(arr.times)))
+        T = arr.psi.shape[0]
+    elif name.startswith(("12", "13")):
+        psi = env["psi_changed"] if label == "res3" else env["psi"]
+        sums.append(_plane_sums(rows, (psi, env["phi"], env["valid"]), env["times"]))
+        T = psi.shape[0]
+    return T, sums
+
+
+def rows_agree(tag, card_rows, cpu_rows, T, sums):
+    """The card's rows against the host's: x, y, vx, vy, obs_count and the
+    row order exact, but inside a run of rows whose lh lie within each
+    other's bound (the two devices' row sums round apart, so such rows may
+    trade places); lh and flux within twice Queue 3's bound. Returns (rows,
+    rows that traded places, the largest lh gap over its bound)."""
+    n = len(cpu_rows["x"])
+    if len(card_rows["x"]) != n:
+        raise AssertionError(f"examples {tag}: {len(card_rows['x'])} rows on the card, {n} on the host")
+    bounds = [_row_bounds(cpu_rows, T, s) for s in sums]
+    lh_b = np.max([b[0] for b in bounds], axis=0)
+    flux_b = np.max([b[1] for b in bounds], axis=0)
+    order_c = np.arange(n)
+    order_g = np.arange(n)
+    key_c = np.stack([cpu_rows[k].astype(np.float64) for k in ROW_KEY], axis=1)
+    key_g = np.stack([card_rows[k].astype(np.float64) for k in ROW_KEY], axis=1)
+    moved = 0
+    if not np.array_equal(key_c, key_g):
+        lh = cpu_rows["lh"].astype(np.float64)
+        start = 0
+        for i in range(1, n + 1):
+            if i < n and abs(lh[i] - lh[i - 1]) <= lh_b[i] + lh_b[i - 1]:
+                continue
+            if not np.array_equal(key_c[start:i], key_g[start:i]):
+                oc = start + np.lexsort(key_c[start:i].T[::-1])
+                og = start + np.lexsort(key_g[start:i].T[::-1])
+                if not np.array_equal(key_c[oc], key_g[og]):
+                    raise AssertionError(f"examples {tag}: rows {start}..{i - 1} differ between the card and "
+                                         f"the host")
+                order_c[start:i], order_g[start:i] = oc, og
+                moved += i - start
+            start = i
+    gap = 0.0
+    for k, b in (("lh", lh_b), ("flux", flux_b)):
+        a, c = card_rows[k][order_g].astype(np.float64), cpu_rows[k][order_c].astype(np.float64)
+        finite = np.isfinite(c)
+        if not np.array_equal(finite, np.isfinite(a)) or np.any(a[~finite] != c[~finite]):
+            raise AssertionError(f"examples {tag}: {k} not finite in the same rows")
+        over = np.abs(a[finite] - c[finite]) / np.maximum(b[order_c][finite], 1e-300)
+        if np.any(over > 1.0):
+            raise AssertionError(f"examples {tag}: {k} apart by {over.max():.3g} times the bound")
+        if k == "lh" and over.size:
+            gap = max(gap, float(over.max()))
+    return n, moved, gap
+
+
+def examples_path(card):
+    """The port's worked examples on the card, each through its default
+    device: its own asserts, its wall, its launches (driven with the counts
+    at 0 and read after; the search examples through their kernels, no twin
+    anywhere); then each search example again on the host in this process,
+    its rows held to the card's (:func:`rows_agree`). Returns the launches
+    of the card runs."""
+    import shutil
+
+    log(f"examples: {', '.join(EXAMPLES_CPU_ONLY)}: CPU tests only: matplotlib")
+    total = {}
+    for name, kernels in EXAMPLES_ON_CARD.items():
+        reset_counts()
+        t0 = time.perf_counter()
+        env = run_example(name)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, twin_calls = read_counts()
+        if any(launches[k] <= 0 for k in kernels) or max(twin_calls.values()) != 0:
+            raise AssertionError(f"examples {name}: not through {kernels} alone: {launches}, {twin_calls}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        line = f"examples {name}: card {wall:.2f} s, launches {({k: v for k, v in launches.items() if v})}"
+        if kernels:
+            t0 = time.perf_counter()
+            host = run_example(name, "cpu")
+            host_wall = time.perf_counter() - t0
+            card_rows = example_rows(name, env)
+            checks = []
+            for label, rows in example_rows(name, host).items():
+                n, moved, gap = rows_agree(f"{name} {label}", card_rows[label], rows,
+                                           *example_sums(name, host, label, rows))
+                checks.append(f"{label} {n} rows ({moved} traded places), lh gap {gap:.3g} of the bound")
+            line += f"; host {host_wall:.2f} s, the same rows: {'; '.join(checks)}"
+            if host.get("workdir"):
+                shutil.rmtree(host["workdir"], ignore_errors=True)
+        if env.get("workdir"):
+            shutil.rmtree(env["workdir"], ignore_errors=True)
+        log(f"{line}; {card}")
+        del env
+    torch.cuda.empty_cache()
+    return total
+
+
+# ----------------------------------------------------------------------
 # Kernel times at the main path's shapes
 # ----------------------------------------------------------------------
 
@@ -2929,6 +3146,7 @@ def main():
     launches_wu = phase("workunit and tools", workunit_path, stack, obj, card, dev)
     launches_disc, k2_disc = phase("discovery", discovery_path, stack, obj, card, dev)
     launches_survey = phase("survey", survey_path, card, dev)
+    launches_ex = phase("examples", examples_path, card)
     t_timing = time.perf_counter()
     k1 = time_k1(stack, dev)
     T, H, W = len(stack.sci), *np.asarray(stack.sci[0]).shape
@@ -2976,7 +3194,7 @@ def main():
     launches = {k: launches_f[k] + launches_q[k] + launches_p.get(k, 0) + launches_s.get(k, 0)
                 + vetting["launches"].get(k, 0) + launches_c.get(k, 0) + launches_sh.get(k, 0)
                 + launches_prof.get(k, 0) + launches_wu.get(k, 0) + launches_disc.get(k, 0)
-                + launches_survey.get(k, 0) for k in launches_f}
+                + launches_survey.get(k, 0) + launches_ex.get(k, 0) for k in launches_f}
     entries = [
         entry("psi_phi_conv", "psi_phi_conv.cu", "conv_pallas.py:32", launches["psi_phi_conv"], err_k1, k1),
         entry("search_topk", "search_topk.cu", "search_pallas.py:182", launches["search_topk"],

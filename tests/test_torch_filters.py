@@ -9,7 +9,10 @@
   is asserted). ``apply_clipped_sigma_g`` on Results alike.
 - the near-duplicate grid: ``grid_keep_indices`` (numpy lexsort) keeps the
   JAX package's rows in its order, against both of the JAX module's paths
-  (its native hash map, and numpy with the native helper unavailable).
+  (its native hash map, and numpy with the native helper unavailable). The
+  JAX helper is built by its own loader into a private directory
+  (``private_jax_native``), so that no other test process can be writing
+  the shared library while this one loads it.
 - clustering: every ``cluster_type`` of ``apply_clustering`` keeps the JAX
   package's rows in order (scikit-learn's DBSCAN there; connected components
   of the eps graph here), with points exactly eps apart, and the SNS
@@ -35,6 +38,24 @@ from kbmod_tpu_torch.filters.sigma_g_filter import apply_clipped_sigma_g as t_ap
 from kbmod_tpu_torch.filters.sns_filters import peak_offset_filter as t_peak_offset_filter
 from kbmod_tpu_torch.filters.sns_filters import predictive_line_cluster as t_predictive_line_cluster
 from kbmod_tpu_torch.results import Results as TResults
+
+
+@pytest.fixture(scope="module")
+def private_jax_native(tmp_path_factory):
+    """The JAX package's native helper, built by its own ``_build`` from its
+    own source into a directory of this module's, and loaded by its own
+    ``_load``. Its loader writes the library in place, where it is shared:
+    a process that loads it while another process's compiler is still
+    writing it gets a truncated file and keeps the helper off. The loader's
+    path and state are restored afterwards."""
+    saved = jax_native._LIB, jax_native._lib, jax_native._tried
+    jax_native._LIB = str(tmp_path_factory.mktemp("jax_native") / "libkbmod_native.so")
+    jax_native._lib, jax_native._tried = None, False
+    try:
+        yield jax_native
+    finally:
+        jax_native._LIB, jax_native._lib, jax_native._tried = saved
+
 
 CLUSTER_TYPES = ["all", "pos_vel", "position", "start_position", "mid_position", "start_end_position",
                  "nn_start_end", "nn_start", "grid_start_end", "grid_start"]
@@ -110,8 +131,9 @@ def _trajectories(seed, n=400):
 
 @pytest.mark.parametrize("native", [True, False], ids=["jax-native", "jax-numpy"])
 @pytest.mark.parametrize("bin_width,max_dt", [(3, 2.0), (10, 15.0), (1, 0.5)])
-def test_grid_keep_indices_matches(monkeypatch, native, bin_width, max_dt):
+def test_grid_keep_indices_matches(request, monkeypatch, native, bin_width, max_dt):
     if native:
+        request.getfixturevalue("private_jax_native")
         assert jax_native.available(), "the JAX package's native helper did not build"
     else:
         monkeypatch.setattr(jax_native, "available", lambda: False)

@@ -30,6 +30,7 @@ from kbmod_tpu_torch.io import comp_image as t_comp
 from kbmod_tpu_torch.io import fits_io as t_fits
 from kbmod_tpu_torch.io import rice as t_rice
 from kbmod_tpu_torch.table import Table as TTable
+from test_torch_filters import private_jax_native  # noqa: F401 (a fixture)
 
 QUANT_ATOL = 0.0051
 
@@ -255,9 +256,10 @@ class TestRice:
 
 
 class TestNative:
-    def test_builds_into_the_ignored_build_directory(self):
+    def test_builds_into_the_ignored_build_directory(self, private_jax_native):  # noqa: F811
         """The library is keyed by its source and flags under _build/, never
-        beside the source."""
+        beside the source. The JAX package's helper it is compared with is
+        built into a private directory (``private_jax_native``)."""
         if not native.available():
             pytest.skip("no C++ compiler for the native library")
         path = native.library_path()
@@ -267,10 +269,9 @@ class TestNative:
         imgs = rng.normal(size=(3, 12, 10)).astype(np.float32)
         xs = np.array([[0, 5, 9], [11, 3, -4]], dtype=np.int32)
         ys = np.array([[0, 6, 11], [2, 13, 1]], dtype=np.int32)
-        from kbmod_tpu import native as j_native
-
+        assert private_jax_native.available(), "the JAX package's native helper did not build"
         np.testing.assert_array_equal(native.extract_stamps(imgs, xs, ys, 2),
-                                      j_native.extract_stamps(imgs, xs, ys, 2))
+                                      private_jax_native.extract_stamps(imgs, xs, ys, 2))
 
     def test_without_a_compiler_warns_once_and_falls_back(self, monkeypatch, tmp_path, caplog):
         def no_compiler(*args, **kwargs):

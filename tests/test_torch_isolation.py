@@ -340,7 +340,8 @@ def test_port_walk_finds_every_package():
                 "cmdline/region_searcher.py", "fake_data/demo_helper.py", "fake_data/fake_result_creator.py",
                 "analysis/__init__.py", "analysis/plotting.py", "analysis/visualizer.py",
                 "analysis/analyze_fakes.py", "analysis/results_rater.py", "cmdline/kbmod_filter.py",
-                "cmdline/kbmod_stamps.py", "cmdline/kbmod_version.py"):
+                "cmdline/kbmod_stamps.py", "cmdline/kbmod_version.py", "examples/01_kbmod_demo.py",
+                "examples/13_checkpoint_resume.py", "scripts/gen_api_docs.py", "scripts/gen_notebooks.py"):
         assert f"kbmod_tpu_torch/{new}" in _PORT_FILES
     assert len(_PORT_FILES) >= 25
 
@@ -362,7 +363,8 @@ PORTED_SCRIPTS = {
     "survey_pipeline_gate.py": "survey_pipeline_gate.py", "survey_full_grid.py": "survey_full_grid.py",
     "snap_sweep.py": "snap_sweep.py", "sigmag_miss_rate.py": "sigmag_miss_rate.py", "long_t.py": "long_t.py",
     "psi_phi_bench.py": "psi_phi_bench.py", "coadd_bench.py": "coadd_bench.py", "prewarm.py": "prewarm.py",
-    "exactrow_microbench.py": "exactrow_microbench.py",
+    "exactrow_microbench.py": "exactrow_microbench.py", "gen_api_docs.py": "gen_api_docs.py",
+    "gen_notebooks.py": "gen_notebooks.py",
 }
 # The JAX side's scripts with no counterpart, each with its reason.
 UNPORTED_SCRIPTS = {
@@ -375,8 +377,6 @@ UNPORTED_SCRIPTS = {
     "pallas_bisect.py": "bisects the TPU kernel's lane and sublane rolls, a TPU mechanism",
     "pallas_tile_sweep.py": "sweeps VMEM row tiles, a TPU mechanism",
     "grouped_th_sweep.py": "sweeps the grouped kernel's VMEM row tiles, a TPU mechanism",
-    "gen_api_docs.py": "goes with the worked-examples slice (ROADMAP Queue 1)",
-    "gen_notebooks.py": "goes with the worked-examples slice (ROADMAP Queue 1)",
 }
 _JAX_SCRIPTS = sorted(name for name in os.listdir(os.path.join(REPO_ROOT, "scripts")) if name.endswith(".py"))
 
@@ -393,6 +393,24 @@ def test_every_jax_script_has_a_counterpart_or_a_reason(name):
 def test_port_scripts_are_listed():
     port_scripts = {os.path.basename(p) for p in _PORT_FILES if p.startswith("kbmod_tpu_torch/scripts/")}
     assert set(PORTED_SCRIPTS.values()) | {"__init__.py", "_common.py", "grouped_timing.py", "twin_forms.py"} == port_scripts
+
+
+_JAX_EXAMPLES = sorted(name for name in os.listdir(os.path.join(REPO_ROOT, "docs", "examples"))
+                       if name.endswith(".py"))
+
+
+@pytest.mark.parametrize("name", _JAX_EXAMPLES)
+def test_every_jax_example_has_a_counterpart(name):
+    """Each of the JAX package's worked examples has the port's, under the
+    same name, with the same percent-format cells, kind for kind."""
+    assert f"kbmod_tpu_torch/examples/{name}" in _PORT_FILES
+
+    def kinds(path):
+        with open(path) as f:
+            return [line.strip() for line in f if line.startswith("# %%")]
+
+    assert kinds(os.path.join(REPO_ROOT, "kbmod_tpu_torch", "examples", name)) == kinds(
+        os.path.join(REPO_ROOT, "docs", "examples", name))
 
 
 @pytest.mark.parametrize("path", _PORT_FILES)
