@@ -77,7 +77,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``sharded_psi_phi_build`` (K1 a shard), each equal to one device; each
    wall beside the one-device wall;
 12. profile: one P1 pipeline run with KB_PROFILE_DIR, whose Chrome trace
-   must name the K1 and K2 launches;
+   must name the K1 and K2 launches (the tracer's ``kbmod:kernel.*``
+   ranges) and whose stage file must hold the build, search and phases;
 13. K6's own path, the micro-benchmark script
    (``kbmod_tpu_torch.scripts.exactrow_microbench``), driven with the
    counts at 0 and read after;
@@ -1625,8 +1626,9 @@ def sharded_path(search, searches, stack, obj, cands, full_rows, card, dev, band
 def profile_path(stack, obj, card):
     """One P1 pipeline run with KB_PROFILE_DIR set, driven with the counts at
     0 (K1, K2): one Chrome trace must be written, naming the K1 and K2
-    launches (their ``record_function`` labels); the device kernels it
-    holds are counted. Returns the launches."""
+    launches (the tracer's ``kbmod:kernel.*`` ranges), and one stage file
+    beside it with the build, search and phase spans; the device kernels
+    the trace holds are counted. Returns the launches."""
     import glob
     import tempfile
 
@@ -1642,21 +1644,28 @@ def profile_path(stack, obj, card):
         if (keep["x"][0], keep["y"][0]) != (obj.x, obj.y):
             raise AssertionError("profile: row 0 of the profiled P1 is not the object")
         traces = glob.glob(os.path.join(tmp, "kbmod_trace_*.json"))
-        if len(traces) != 1:
-            raise AssertionError(f"profile: {len(traces)} trace files written, not one")
+        stage_files = glob.glob(os.path.join(tmp, "kbmod_stages_*.json"))
+        if len(traces) != 1 or len(stage_files) != 1:
+            raise AssertionError(f"profile: {len(traces)} trace and {len(stage_files)} stage files written, not one each")
         size = os.path.getsize(traces[0])
         with open(traces[0]) as f:
             events = json.load(f)["traceEvents"]
+        with open(stage_files[0]) as f:
+            stages = json.load(f)
     names = [str(e.get("name", "")) for e in events]
-    labels = {k: sum(n == k for n in names) for k in ("kbmod K1 psi_phi_conv", "kbmod K2 search_topk")}
+    labels = {k: sum(n == k for n in names) for k in ("kbmod:kernel.K1.psi_phi_conv", "kbmod:kernel.K2.search_topk")}
     kernels = [n for e, n in zip(events, names) if e.get("cat") == "kernel"]
     device = {"K1": sum("conv_tiled" in n or "conv_generic" in n for n in kernels),
               "K2": sum("search_topk_kernel" in n for n in kernels)}
     log(f"profile: trace of {size} bytes, {len(events)} events; launch labels {labels} (launches {launches}); "
-        f"{len(kernels)} device kernel events, of them K1 {device['K1']}, K2 {device['K2']}; profiled P1 wall "
-        f"{wall:.1f} ms; {card}")
+        f"{len(kernels)} device kernel events, of them K1 {device['K1']}, K2 {device['K2']}; {len(stages)} stage "
+        f"names, build {stages.get('build', {}).get('seconds', 0.0) * 1e3:.1f} ms, search "
+        f"{stages.get('search', {}).get('seconds', 0.0) * 1e3:.1f} ms; profiled P1 wall {wall:.1f} ms; {card}")
     if min(labels.values()) < 1:
         raise AssertionError(f"profile: the trace does not name the K1 and K2 launches: {labels}")
+    missing = {"KBMOD", "build", "build.conv", "search", "search.topk", "load_and_filter_results"} - set(stages)
+    if missing:
+        raise AssertionError(f"profile: the stage file lacks {sorted(missing)}")
     if min(device.values()) < 1:
         log("profile: warning: the trace holds no device kernel events for K1 or K2 (CUPTI)")
     return launches

@@ -20,6 +20,8 @@ from pathlib import Path
 
 import numpy as np
 
+from kbmod_tpu_torch import tracing
+
 logger = logging.getLogger(__name__)
 
 _SRC = Path(__file__).resolve().parent / "kbmod_native.cpp"
@@ -40,6 +42,7 @@ def _build(out):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = ["g++", *CXX_FLAGS, str(_SRC), "-o", str(tmp)]
+    tracing.count("native.build")
     logger.info(f"Building native library: {' '.join(cmd)}")
     try:
         subprocess.run(cmd, check=True, capture_output=True)

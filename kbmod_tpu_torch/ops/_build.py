@@ -4,7 +4,8 @@ Each source in ``kbmod_tpu_torch/csrc`` has a plain C interface and is
 compiled on first use into ``kbmod_tpu_torch/_build/lib<name>-<hash>.so``,
 keyed by a hash of the source, the shared headers (``csrc/*.cuh``) and the
 flags, so an edited source rebuilds and an unchanged one loads at once. Nothing here runs at import time: the
-CPU tests import every module on hosts that have no nvcc.
+CPU tests import every module on hosts that have no nvcc. Each compile adds one to the tracer's counter
+``native.build``.
 """
 
 import ctypes
@@ -13,6 +14,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+from kbmod_tpu_torch import tracing
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = PACKAGE_DIR / "csrc"
@@ -59,6 +62,7 @@ def _start(name):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [nvcc_path(), *NVCC_FLAGS, *_REPORT_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
+    tracing.count("native.build")
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return name, proc, out, tmp
 

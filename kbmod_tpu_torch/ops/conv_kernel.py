@@ -16,6 +16,7 @@ import ctypes
 import numpy as np
 import torch
 
+from kbmod_tpu_torch import tracing
 from kbmod_tpu_torch.ops import _build
 from kbmod_tpu_torch.ops.convolve import conv_same
 
@@ -148,7 +149,7 @@ def psi_phi_conv(sci, var, psf):
     psi = torch.empty_like(sci)
     phi = torch.empty_like(sci)
     if N * H * W:
-        with torch.profiler.record_function("kbmod K1 psi_phi_conv"):
+        with tracing.span("kernel.K1.psi_phi_conv"):
             err = lib.kb_psi_phi_conv(
                 sci.data_ptr(), var.data_ptr(), taps.data_ptr(), taps_host.ctypes.data, N, H, W, kh, kw,
                 psi.data_ptr(), phi.data_ptr(), torch.cuda.current_stream(sci.device).cuda_stream,

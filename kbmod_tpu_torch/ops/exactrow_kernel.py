@@ -19,6 +19,7 @@ import ctypes
 
 import torch
 
+from kbmod_tpu_torch import tracing
 from kbmod_tpu_torch.ops import _build
 
 MODES = ("A", "B", "C")
@@ -127,7 +128,7 @@ def exactrow_accumulate(tbl, buf, mode="A", group=8, th=None, check=True):
     tbl = tbl.contiguous()
     buf = buf.contiguous()
     out = torch.zeros((th, W4), dtype=torch.int32, device=buf.device)
-    with torch.profiler.record_function("kbmod K6 exactrow_accumulate"):
+    with tracing.span("kernel.K6.exactrow_accumulate"):
         err = lib.kb_exactrow(
             tbl.data_ptr(), buf.data_ptr(), NG, T, int(group), th, W4, ord(mode), out.data_ptr(),
             torch.cuda.current_stream(buf.device).cuda_stream,

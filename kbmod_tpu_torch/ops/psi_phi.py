@@ -10,11 +10,18 @@ keeps uint8/uint16 code planes where code 0 means masked and a valid value
 v is stored as floor((clamp(v) - min) / scale + 1), the reference's encoding
 (psi_phi_array_ds.h:40-47). Everything is built on the device by kernel K1
 (ops/conv_kernel.py) and plain PyTorch ops, and stays there.
+
+A build is traced in the stages ``build.stage`` (the host's stack and
+float32 cast), ``build.upload`` (the copy to the device, counted in
+``bytes.h2d``), ``build.conv`` (K1), ``build.scale`` (the quantized build's
+min/max pass) and ``build.encode`` (the codes and their pair writes, or the
+float planes' zero fill and validity plane).
 """
 
 import numpy as np
 import torch
 
+from kbmod_tpu_torch import tracing
 from kbmod_tpu_torch.device import resolve_device
 from kbmod_tpu_torch.ops.conv_kernel import psi_phi_conv
 
@@ -34,6 +41,17 @@ def _psi_phi_from_sci_var(sci, var, psf):
     card, its plain twin on the CPU.
     """
     return psi_phi_conv(sci, var, psf)
+
+
+def _upload(sci, var, chunk, device):
+    """The images ``chunk`` of sci and var as (N, H, W) float32 tensors on
+    ``device``: stacked and cast on the host, then copied."""
+    with tracing.span("build.stage"):
+        sci_h = np.stack([np.asarray(sci[i], dtype=np.float32) for i in chunk])
+        var_h = np.stack([np.asarray(var[i], dtype=np.float32) for i in chunk])
+    with tracing.span("build.upload"):
+        tracing.count("bytes.h2d", sci_h.nbytes + var_h.nbytes)
+        return torch.as_tensor(sci_h).to(device), torch.as_tensor(var_h).to(device)
 
 
 def _conv_batch_budget(device):
@@ -75,12 +93,12 @@ def generate_all_psi_phi_images(sci, var, psfs, device=None):
         k = torch.as_tensor(kernels[idxs[0]])
         for lo in range(0, len(idxs), batch):
             chunk = idxs[lo : lo + batch]
-            sci_b = torch.as_tensor(np.stack([np.asarray(sci[i], dtype=np.float32) for i in chunk])).to(dev)
-            var_b = torch.as_tensor(np.stack([np.asarray(var[i], dtype=np.float32) for i in chunk])).to(dev)
-            psi_b, phi_b = _psi_phi_from_sci_var(sci_b, var_b, k)
-            where = torch.as_tensor(chunk, device=dev)
-            psi.index_copy_(0, where, psi_b)
-            phi.index_copy_(0, where, phi_b)
+            sci_b, var_b = _upload(sci, var, chunk, dev)
+            with tracing.span("build.conv"):
+                psi_b, phi_b = _psi_phi_from_sci_var(sci_b, var_b, k)
+                where = torch.as_tensor(chunk, device=dev)
+                psi.index_copy_(0, where, psi_b)
+                phi.index_copy_(0, where, phi_b)
     return psi, phi
 
 
@@ -239,13 +257,6 @@ def _finite_minmax(a):
     return torch.where(ok, a, inf).amin(), torch.where(ok, a, -inf).amax()
 
 
-def _chunk_minmax(sci_b, var_b, kernel):
-    """Finite min/max of a chunk's psi and phi, on the device: a (4,)
-    tensor (psi min, psi max, phi min, phi max)."""
-    psi_b, phi_b = _psi_phi_from_sci_var(sci_b, var_b, kernel)
-    return torch.stack([*_finite_minmax(psi_b), *_finite_minmax(phi_b)])
-
-
 def fill_psi_phi_array_streaming(result, num_bytes, sci, var, psfs, zeroed_times, device=None):
     """Quantized build in two passes over the stack, both on the device:
 
@@ -272,12 +283,18 @@ def fill_psi_phi_array_streaming(result, num_bytes, sci, var, psfs, zeroed_times
             k = torch.as_tensor(kernels[idxs[0]])
             for lo in range(0, len(idxs), batch):
                 chunk = idxs[lo : lo + batch]
-                sci_b = torch.as_tensor(np.stack([np.asarray(sci[i], dtype=np.float32) for i in chunk])).to(dev)
-                var_b = torch.as_tensor(np.stack([np.asarray(var[i], dtype=np.float32) for i in chunk])).to(dev)
-                yield k, chunk, sci_b, var_b
+                yield (k, chunk, *_upload(sci, var, chunk, dev))
 
-    # Pass 1: global finite min/max (psi_phi_array.cpp:219-245 semantics).
-    mms = torch.stack([_chunk_minmax(sci_b, var_b, k) for k, _, sci_b, var_b in chunks()]).tolist()
+    # Pass 1: global finite min/max (psi_phi_array.cpp:219-245 semantics),
+    # four numbers per chunk, read once.
+    mms = []
+    for k, _, sci_b, var_b in chunks():
+        with tracing.span("build.conv"):
+            psi_b, phi_b = _psi_phi_from_sci_var(sci_b, var_b, k)
+        with tracing.span("build.scale"):
+            mms.append(torch.stack([*_finite_minmax(psi_b), *_finite_minmax(phi_b)]))
+    with tracing.span("build.scale"):
+        mms = torch.stack(mms).tolist()
     psi_min = min(m[0] for m in mms)
     psi_max = max(m[1] for m in mms)
     phi_min = min(m[2] for m in mms)
@@ -293,12 +310,14 @@ def fill_psi_phi_array_streaming(result, num_bytes, sci, var, psfs, zeroed_times
     dtype = _CODE_DTYPES[num_bytes]
     pairs = _zero_codes((num_times, height, _padded_width(width), 2), dtype, dev)
     for k, chunk, sci_b, var_b in chunks():
-        psi_b, phi_b = _psi_phi_from_sci_var(sci_b, var_b, k)
-        psi_e = _storage(_encode_chunk(psi_b, psi_params, dtype))
-        phi_e = _storage(_encode_chunk(phi_b, phi_params, dtype))
-        for j, i in enumerate(chunk):
-            _storage(pairs)[i, :, :width, 0] = psi_e[j]
-            _storage(pairs)[i, :, :width, 1] = phi_e[j]
+        with tracing.span("build.conv"):
+            psi_b, phi_b = _psi_phi_from_sci_var(sci_b, var_b, k)
+        with tracing.span("build.encode"):
+            psi_e = _storage(_encode_chunk(psi_b, psi_params, dtype))
+            phi_e = _storage(_encode_chunk(phi_b, phi_params, dtype))
+            for j, i in enumerate(chunk):
+                _storage(pairs)[i, :, :width, 0] = psi_e[j]
+                _storage(pairs)[i, :, :width, 1] = phi_e[j]
 
     meta = result.meta
     _set_meta(meta, num_bytes, num_times, height, width)
@@ -542,19 +561,22 @@ def fill_psi_phi_array(result, num_bytes, psi_imgs, phi_imgs, zeroed_times, devi
     meta = result.meta
     _set_meta(meta, num_bytes, num_times, psi.shape[1], psi.shape[2])
     if meta.num_bytes in (1, 2):
-        psi_params = compute_scale_params_from_image_vect(psi, meta.num_bytes)
-        phi_params = compute_scale_params_from_image_vect(phi, meta.num_bytes)
+        with tracing.span("build.scale"):
+            psi_params = compute_scale_params_from_image_vect(psi, meta.num_bytes)
+            phi_params = compute_scale_params_from_image_vect(phi, meta.num_bytes)
         meta.psi_min_val, meta.psi_max_val, meta.psi_scale = psi_params
         meta.phi_min_val, meta.phi_max_val, meta.phi_scale = phi_params
         dtype = _CODE_DTYPES[meta.num_bytes]
-        result._set_codes(_encode_array(psi, *psi_params, dtype), _encode_array(phi, *phi_params, dtype))
+        with tracing.span("build.encode"):
+            result._set_codes(_encode_array(psi, *psi_params, dtype), _encode_array(phi, *phi_params, dtype))
     else:
-        valid = torch.isfinite(psi) & torch.isfinite(phi)
-        zero = torch.zeros((), dtype=torch.float32, device=dev)
-        result.psi = torch.where(valid, psi, zero)
-        result.phi = torch.where(valid, phi, zero)
-        result.valid = valid.to(torch.uint8)
-        result._pairs = None
+        with tracing.span("build.encode"):
+            valid = torch.isfinite(psi) & torch.isfinite(phi)
+            zero = torch.zeros((), dtype=torch.float32, device=dev)
+            result.psi = torch.where(valid, psi, zero)
+            result.phi = torch.where(valid, phi, zero)
+            result.valid = valid.to(torch.uint8)
+            result._pairs = None
     result.times = np.asarray(zeroed_times, dtype=float)
     # As in the reference, building the array does not mark it "on GPU";
     # an explicit move_to_gpu does.

@@ -21,13 +21,13 @@ PyTorch on the search's device, as the JAX package runs it in XLA).
 
 import logging
 import os
-import time
 from functools import partial
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from kbmod_tpu_torch import tracing
 from kbmod_tpu_torch.ops.psi_phi import _f32, _storage, code_pair_views, interleave_code_pairs
 from kbmod_tpu_torch.ops.search_encoded import search_topk_encoded
 from kbmod_tpu_torch.ops.search_kernel import search_topk
@@ -593,41 +593,26 @@ def _fetch_topk(top_lh, top_idx):
     Empty slots (idx == -1, lh == -FLT_MAX) usually dominate after gating,
     so on a card the filled slots are compacted there with torch.nonzero
     and only they cross to the host; the dense maps are rebuilt there.
-    Exactly equivalent to a dense copy.
+    Exactly equivalent to a dense copy. The tracer's counter ``bytes.d2h``
+    adds the bytes that cross (on the host, the maps' own).
     """
     shape = tuple(top_lh.shape)
     total = top_lh.numel()
+    dense = top_lh.nbytes + top_idx.nbytes
     if top_lh.device.type == "cpu":
+        tracing.count("bytes.d2h", dense)
         return top_lh.numpy(), top_idx.numpy()
     pos = torch.nonzero(top_idx.reshape(-1) >= 0).reshape(-1)
     if 4 * pos.numel() >= total:
+        tracing.count("bytes.d2h", dense)
         return top_lh.cpu().numpy(), top_idx.cpu().numpy()
+    tracing.count("bytes.d2h", pos.numel() * (pos.element_size() + top_lh.element_size() + top_idx.element_size()))
     lh_np = np.full(total, -FLT_MAX, dtype=np.float32)
     idx_np = np.full(total, -1, dtype=np.int32)
     pos_np = pos.cpu().numpy()
     lh_np[pos_np] = top_lh.reshape(-1)[pos].cpu().numpy()
     idx_np[pos_np] = top_idx.reshape(-1)[pos].cpu().numpy()
     return lh_np.reshape(shape), idx_np.reshape(shape)
-
-
-class _Timer:
-    """Stage times in milliseconds into ``timings`` (a dict, or None for no
-    timing). On a card each stage ends with a synchronize, so the times are
-    wall times of finished device work."""
-
-    def __init__(self, timings, device):
-        self.timings = timings
-        self.device = device
-        self.t0 = time.perf_counter()
-
-    def lap(self, name):
-        if self.timings is None:
-            return
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        now = time.perf_counter()
-        self.timings[name] = (now - self.t0) * 1e3
-        self.t0 = now
 
 
 def exact_inputs(psi, phi, valid, bounds):
@@ -646,6 +631,7 @@ def _local_topk(psi, phi, valid, dxs, dys, *, sigmag_mode, min_obs, min_lh, sgl_
     dev = psi.device
     if sigmag_mode == "exact":
         # Every candidate scored and gated by its clipped lh.
+        tracing.count("route.exact")
         planes, exact = exact_inputs(psi, phi, valid, bounds)
         return search_topk_sigmag_exact(
             *planes, torch.as_tensor(dxs, device=dev), torch.as_tensor(dys, device=dev), min_obs, min_lh,
@@ -654,7 +640,10 @@ def _local_topk(psi, phi, valid, dxs, dys, *, sigmag_mode, min_obs, min_lh, sgl_
     if isinstance(psi, EncodedPlanes):
         # The quantized stack: the codes go straight through the encoded
         # kernels, which need no validity plane (code 0 is masked).
-        return search_topk_encoded(psi, dxs, dys, float(min_obs), float(min_lh), **bounds)
+        out = search_topk_encoded(psi, dxs, dys, float(min_obs), float(min_lh), **bounds)
+        tracing.count("route." + search_topk_encoded.last_route)
+        return out
+    tracing.count("route.float")
     return search_topk(
         psi, phi, valid, torch.as_tensor(dxs, device=dev), torch.as_tensor(dys, device=dev), float(min_obs),
         float(min_lh), has_masked=has_masked, **bounds,
@@ -686,13 +675,15 @@ def core_search(
     ``KB_SIGMAG_MODE=exact`` every candidate is scored by its clipped lh
     (:func:`search_topk_sigmag_exact`, on decoded planes for a quantized
     stack). ``timings`` (a dict) receives the stage times "search_ms" and
-    "assemble_ms". ``topk_fn`` (with :func:`_local_topk`'s signature) and
+    "assemble_ms" of the spans ``search.topk`` (the offsets, the plans and
+    the top-K maps) and ``search.assemble`` (everything after), each ended
+    by a synchronize on a card. ``topk_fn`` (with :func:`_local_topk`'s signature) and
     ``gather`` (:func:`_gather_curves`'s) replace the one-device maps and
     re-scoring gathers: ``parallel.sharded.sharded_core_search`` passes
     its mesh-sharded ones.
     """
     dev = psi.device
-    timer = _Timer(timings, dev)
+    sync = dev if timings is not None else None
     SH, SW = y_max - y_min, x_max - x_min
     num_cand = len(vxs)
     k = int(results_per_pixel)
@@ -705,34 +696,35 @@ def core_search(
     topk_fn = topk_fn or _local_topk
     gather = gather or _gather_curves
 
-    dxs, dys = trajectory_offsets(vxs, vys, times)
-    escalate = _SigmaGEscalation(do_sigmag, sigmag_mode, over, k, num_cand)
-    has_masked = not isinstance(psi, EncodedPlanes) and sigmag_mode != "exact" and bool(torch.min(valid) == 0)
-    top_lh, top_idx = topk_fn(
-        psi, phi, valid, dxs, dys, sigmag_mode=sigmag_mode, min_obs=min_obs, min_lh=min_lh, sgl_L=sgl_L,
-        sgl_H=sgl_H, sigmag_coeff=sigmag_coeff, has_masked=has_masked,
-        x_min=int(x_min), x_max=int(x_max), y_min=int(y_min), y_max=int(y_max), k_results=int(k_search),
-        gate_min_obs=gate_min_obs, gate_min_lh=bool(gate_min_lh),
-    )
-    timer.lap("search_ms")
-    dxs_t = torch.as_tensor(dxs, device=dev)
-    dys_t = torch.as_tensor(dys, device=dev)
-    refine_fn = None
-    if escalate.enabled:
-        refine_fn = partial(
-            exact_refine_pixels, psi=psi, phi=phi, valid=valid, times=times,
-            vxs=vxs, vys=vys, k=k, min_obs=min_obs, min_lh=min_lh,
-            sgl_L=sgl_L, sgl_H=sgl_H, sigmag_coeff=sigmag_coeff, gather=gather,
+    with tracing.span("search.topk", into=timings, key="search_ms", sync=sync):
+        with tracing.span("search.offsets"):
+            dxs, dys = trajectory_offsets(vxs, vys, times)
+        escalate = _SigmaGEscalation(do_sigmag, sigmag_mode, over, k, num_cand)
+        has_masked = not isinstance(psi, EncodedPlanes) and sigmag_mode != "exact" and bool(torch.min(valid) == 0)
+        top_lh, top_idx = topk_fn(
+            psi, phi, valid, dxs, dys, sigmag_mode=sigmag_mode, min_obs=min_obs, min_lh=min_lh, sgl_L=sgl_L,
+            sgl_H=sgl_H, sigmag_coeff=sigmag_coeff, has_masked=has_masked,
+            x_min=int(x_min), x_max=int(x_max), y_min=int(y_min), y_max=int(y_max), k_results=int(k_search),
+            gate_min_obs=gate_min_obs, gate_min_lh=bool(gate_min_lh),
         )
-    results, _ = assemble_core_results(
-        top_lh, top_idx, psi, phi, valid, times, vxs, vys,
-        k=k, k_search=k_search, x_min=x_min, y_min=y_min, SH=SH, SW=SW,
-        min_obs=min_obs, min_lh=min_lh, do_sigmag=do_sigmag,
-        sgl_L=sgl_L, sgl_H=sgl_H, sigmag_coeff=sigmag_coeff,
-        warn_on_churn=not escalate.enabled, refine_fn=refine_fn,
-        compact_min_lh=compact_min_lh, offsets=(dxs_t, dys_t), gather=gather,
-    )
-    timer.lap("assemble_ms")
+    with tracing.span("search.assemble", into=timings, key="assemble_ms", sync=sync):
+        dxs_t = torch.as_tensor(dxs, device=dev)
+        dys_t = torch.as_tensor(dys, device=dev)
+        refine_fn = None
+        if escalate.enabled:
+            refine_fn = partial(
+                exact_refine_pixels, psi=psi, phi=phi, valid=valid, times=times,
+                vxs=vxs, vys=vys, k=k, min_obs=min_obs, min_lh=min_lh,
+                sgl_L=sgl_L, sgl_H=sgl_H, sigmag_coeff=sigmag_coeff, gather=gather,
+            )
+        results, _ = assemble_core_results(
+            top_lh, top_idx, psi, phi, valid, times, vxs, vys,
+            k=k, k_search=k_search, x_min=x_min, y_min=y_min, SH=SH, SW=SW,
+            min_obs=min_obs, min_lh=min_lh, do_sigmag=do_sigmag,
+            sgl_L=sgl_L, sgl_H=sgl_H, sigmag_coeff=sigmag_coeff,
+            warn_on_churn=not escalate.enabled, refine_fn=refine_fn,
+            compact_min_lh=compact_min_lh, offsets=(dxs_t, dys_t), gather=gather,
+        )
     return results
 
 
@@ -756,7 +748,8 @@ def assemble_core_results(
     Returns ``(results, pool_tail_frac)``, the second value being the
     sigma-G pool-boundary churn diagnostic (0.0 when no re-rank ran).
     """
-    top_lh, top_idx = _fetch_topk(top_lh, top_idx)  # (K', SH, SW) numpy
+    with tracing.span("search.fetch"):
+        top_lh, top_idx = _fetch_topk(top_lh, top_idx)  # (K', SH, SW) numpy
 
     # Pixel-major layout: result[(i*SW + j)*K + k].
     kidx = np.transpose(top_idx, (1, 2, 0)).reshape(-1)
@@ -825,33 +818,34 @@ def assemble_core_results(
 
     tail_frac = 0.0
     if do_sigmag and k_search > k:
-        # Re-rank within each pixel by clipped lh and keep only K per pixel.
-        n_pix = SH * SW
-        lh_px = results["lh"].reshape(n_pix, k_search)
-        order = np.argsort(-lh_px, axis=1, kind="stable")[:, :k]
-        if warn_on_churn:
-            tail_frac = _warn_on_pool_tail_churn(order, lh_px, k, k_search)
-        else:
-            tail_frac = sigmag_pool_tail_fraction(order, lh_px, k, k_search)
-        kept_real = np.take_along_axis(lh_px, order, axis=1) > -FLT_MAX
-        flat = (np.arange(n_pix)[:, None] * k_search + order).reshape(-1)
-        results = {key: val[flat] for key, val in results.items()}
-        if refine_fn is not None:
-            # Re-score a pixel exactly when the pool boundary is suspect:
-            # (a) the clipped re-rank CHANGED the kept top-K membership, or
-            # (b) the pool is full and the kept K-th clipped lh fell below
-            #     the pool's minimum unclipped lh.
-            membership_changed = ((order >= k) & kept_real).any(axis=1)
-            klh_px = klh.reshape(n_pix, k_search)
-            real_slots = klh_px > -FLT_MAX / 2
-            pool_full = real_slots.all(axis=1)
-            pool_floor = np.where(real_slots, klh_px, FLT_MAX).min(axis=1)
-            kept_clipped = np.take_along_axis(lh_px, order, axis=1)
-            kept_floor = np.where(kept_real, kept_clipped, FLT_MAX).min(axis=1)
-            inverted = pool_full & (kept_floor < pool_floor)
-            flagged = np.nonzero(membership_changed | inverted)[0]
-            if len(flagged):
-                results = refine_fn(results, flagged)
+        with tracing.span("search.rerank"):
+            # Re-rank within each pixel by clipped lh and keep only K per pixel.
+            n_pix = SH * SW
+            lh_px = results["lh"].reshape(n_pix, k_search)
+            order = np.argsort(-lh_px, axis=1, kind="stable")[:, :k]
+            if warn_on_churn:
+                tail_frac = _warn_on_pool_tail_churn(order, lh_px, k, k_search)
+            else:
+                tail_frac = sigmag_pool_tail_fraction(order, lh_px, k, k_search)
+            kept_real = np.take_along_axis(lh_px, order, axis=1) > -FLT_MAX
+            flat = (np.arange(n_pix)[:, None] * k_search + order).reshape(-1)
+            results = {key: val[flat] for key, val in results.items()}
+            if refine_fn is not None:
+                # Re-score a pixel exactly when the pool boundary is suspect:
+                # (a) the clipped re-rank CHANGED the kept top-K membership, or
+                # (b) the pool is full and the kept K-th clipped lh fell below
+                #     the pool's minimum unclipped lh.
+                membership_changed = ((order >= k) & kept_real).any(axis=1)
+                klh_px = klh.reshape(n_pix, k_search)
+                real_slots = klh_px > -FLT_MAX / 2
+                pool_full = real_slots.all(axis=1)
+                pool_floor = np.where(real_slots, klh_px, FLT_MAX).min(axis=1)
+                kept_clipped = np.take_along_axis(lh_px, order, axis=1)
+                kept_floor = np.where(kept_real, kept_clipped, FLT_MAX).min(axis=1)
+                inverted = pool_full & (kept_floor < pool_floor)
+                flagged = np.nonzero(membership_changed | inverted)[0]
+                if len(flagged):
+                    results = refine_fn(results, flagged)
 
     if compact_min_lh is not None and not compact_early:
         keepm = results["lh"] >= float(compact_min_lh)

@@ -22,6 +22,7 @@ kept in ``search_topk_encoded.last_route`` ("grouped", "paired" or
 import numpy as np
 import torch
 
+from kbmod_tpu_torch import tracing
 from kbmod_tpu_torch.ops.search_encoded_kernel import (
     PAIRED_MAX_T,
     search_encoded,
@@ -71,14 +72,16 @@ def search_topk_encoded(
         cand_valid=cand_valid, cand_offset=cand_offset,
     )
     if cand_valid is None and not cand_offset:
-        dedup = _dedup_plan_cached(dxs, dys, DEDUP_MIN_FACTOR)
+        with tracing.span("search.plan"):
+            dedup = _dedup_plan_cached(dxs, dys, DEDUP_MIN_FACTOR)
         if dedup is not None:
             u_dxs, u_dys, members, _ = dedup
             top_lh, top_idx = search_topk_encoded(planes, u_dxs, u_dys, min_obs, min_lh, **kw)
             search_topk_encoded.last_route = "dedup+" + search_topk_encoded.last_route
             return _expand_topk_classes(top_lh, top_idx, members)
     T = planes.shape[0]
-    route, plan = encoded_route(planes.psi_codes.dtype, T, dys)
+    with tracing.span("search.plan"):
+        route, plan = encoded_route(planes.psi_codes.dtype, T, dys)
     dev = planes.device
     dxs_t, dys_t = torch.as_tensor(dxs, device=dev), torch.as_tensor(dys, device=dev)
     if route == "grouped":

@@ -36,13 +36,15 @@ import ctypes
 import numpy as np
 import torch
 
+from kbmod_tpu_torch import tracing
 from kbmod_tpu_torch.ops import _build
 from kbmod_tpu_torch.ops.psi_phi import _codes_as_int, _f32, interleave_code_pairs
 from kbmod_tpu_torch.ops.search_kernel import FLT_MAX, allocate_maps, merge_chunk, twin_window_sums
 from kbmod_tpu_torch.ops.search_plan import GROUP_G, grouped_plan, staging_header_bytes, window_layout_cached
 
-# The kernels' numbers, as the profiler's launch labels name them.
-_KERNEL_TAGS = {"search_encoded": "K3", "search_paired": "K4", "search_grouped": "K5"}
+# The tracer's span of each kernel's launch.
+_KERNEL_SPANS = {"search_encoded": "kernel.K3.search_encoded", "search_paired": "kernel.K4.search_paired",
+                 "search_grouped": "kernel.K5.search_grouped"}
 # uint8 code sums fit a 16-bit field while T * 255 <= 65535.
 PAIRED_MAX_T = 257
 
@@ -294,7 +296,7 @@ def _launch_grouped(lib, entry, lead, prepared, min_obs, min_lh, kw, st, order, 
         np.concatenate([np.append(starts, C), st["lay"].ravel(), st["off"].ravel()]).astype(np.int32), device=dev)
     gstart, lay, off = tables[: NG + 1], tables[NG + 1 : NG + 1 + n_lay], tables[NG + 1 + n_lay :]
     top_lh, top_idx = allocate_maps(K, SH, SW, dev, name)
-    with torch.profiler.record_function(f"kbmod {_KERNEL_TAGS[name]} {name}"):
+    with tracing.span(_KERNEL_SPANS[name]):
         err = getattr(lib, entry)(
             *lead, pairs.data_ptr(), ox.data_ptr(), oy.data_ptr(), gidx.data_ptr(), cand_ok.data_ptr(),
             gstart.data_ptr(), lay.data_ptr(), off.data_ptr(), NG, T, H, Wp, SH, SW, K,
@@ -327,8 +329,9 @@ def search_encoded(planes, dxs, dys, min_obs, min_lh, **kw):
     if C == 0:
         return _empty(K, SH, SW, prepared[0].device)
     bits = 16 if planes.psi_codes.dtype == torch.uint16 else 8
-    dx_np, dy_np = _offsets_np(dxs, dys)
-    st = k3_staging(dx_np, dy_np, kw["x_min"], kw["y_min"], bits)
+    with tracing.span("search.plan"):
+        dx_np, dy_np = _offsets_np(dxs, dys)
+        st = k3_staging(dx_np, dy_np, kw["x_min"], kw["y_min"], bits)
     lib = _build.load("search_topk_encoded_grouped", _K3_SIGNATURES)
     tile = tuple(lib.kb_search_encoded_tile(bits, a) for a in range(3))
     if (tile != (K3_TILE_ROWS, K3_TILE_COLS, K3_CHUNK[bits]) or lib.kb_search_encoded_max_group() != GROUP_G
@@ -357,8 +360,9 @@ def search_paired(planes, dxs, dys, min_obs, min_lh, **kw):
     C, _, _, _, _, SH, SW, K = prepared[-1]
     if C == 0:
         return _empty(K, SH, SW, prepared[0].device)
-    dx_np, dy_np = _offsets_np(dxs, dys)
-    st = k4_staging(dx_np, dy_np, kw["x_min"], kw["y_min"])
+    with tracing.span("search.plan"):
+        dx_np, dy_np = _offsets_np(dxs, dys)
+        st = k4_staging(dx_np, dy_np, kw["x_min"], kw["y_min"])
     lib = _build.load("search_topk_encoded", _PAIRED_SIGNATURES)
     tile = tuple(lib.kb_search_paired_tile(a) for a in range(3))
     if (tile != (K4_TILE_ROWS, K4_TILE_COLS, K4_CHUNK) or lib.kb_search_paired_max_group() != GROUP_G
@@ -395,12 +399,13 @@ def search_grouped(planes, dxs, dys, min_obs, min_lh, *, plan, **kw):
     bounds = np.append(starts, C)
     lib = _build.load("search_topk_grouped", _GRP_SIGNATURES)
     G = lib.kb_search_grouped_max_group()
-    if len(order) != C or starts[0] != 0 or (np.diff(bounds) <= 0).any() or np.diff(bounds).max() > G:
-        raise ValueError(f"search_grouped: the plan must split all {C} candidates into groups of 1..{G}")
-    if sorted(order.tolist()) != list(range(C)):
-        raise ValueError("search_grouped: the plan's order must be a permutation of the candidates")
-    dx_np, dy_np = _offsets_np(dxs, dys)
-    st = k5_staging(dx_np, dy_np, kw["x_min"], kw["y_min"], (order, starts))
+    with tracing.span("search.plan"):
+        if len(order) != C or starts[0] != 0 or (np.diff(bounds) <= 0).any() or np.diff(bounds).max() > G:
+            raise ValueError(f"search_grouped: the plan must split all {C} candidates into groups of 1..{G}")
+        if sorted(order.tolist()) != list(range(C)):
+            raise ValueError("search_grouped: the plan's order must be a permutation of the candidates")
+        dx_np, dy_np = _offsets_np(dxs, dys)
+        st = k5_staging(dx_np, dy_np, kw["x_min"], kw["y_min"], (order, starts))
     tile = tuple(lib.kb_search_grouped_tile(a) for a in range(3))
     if (tile != (K5_TILE_ROWS, K5_TILE_COLS, K5_CHUNK) or G != GROUP_G
             or st["smem_bytes"] != lib.kb_search_grouped_smem_bytes(T, st["buf_elems"])):

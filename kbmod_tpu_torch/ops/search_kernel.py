@@ -20,6 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from kbmod_tpu_torch import tracing
 from kbmod_tpu_torch.ops import _build
 from kbmod_tpu_torch.ops.search_plan import GROUP_G, grouped_plan, staging_header_bytes, window_layout_cached
 
@@ -281,9 +282,10 @@ def search_topk(
         top_lh.fill_(-FLT_MAX)
         top_idx.fill_(-1)
         return top_lh, top_idx
-    dx_np = torch.as_tensor(dxs).cpu().numpy()
-    dy_np = torch.as_tensor(dys).cpu().numpy()
-    st = k2_staging(dx_np, dy_np, x_min, y_min)
+    with tracing.span("search.plan"):
+        dx_np = torch.as_tensor(dxs).cpu().numpy()
+        dy_np = torch.as_tensor(dys).cpu().numpy()
+        st = k2_staging(dx_np, dy_np, x_min, y_min)
     lib = _lib()
     tile = tuple(lib.kb_search_topk_tile(a) for a in range(3))
     if (tile != (K2_TILE_ROWS, K2_TILE_COLS, K2_CHUNK) or lib.kb_search_topk_max_group() != GROUP_G
@@ -303,7 +305,7 @@ def search_topk(
     gstart = torch.as_tensor(np.append(st["starts"], C).astype(np.int32), device=dev)
     lay = torch.as_tensor(st["lay"], device=dev)
     off = torch.as_tensor(st["off"], device=dev)
-    with torch.profiler.record_function("kbmod K2 search_topk"):
+    with tracing.span("kernel.K2.search_topk"):
         err = lib.kb_search_topk(
             psi_p.data_ptr(), phi_p.data_ptr(), valid_p.data_ptr(), ox.data_ptr(), oy.data_ptr(),
             gidx.data_ptr(), cand_ok.data_ptr(), gstart.data_ptr(), lay.data_ptr(), off.data_ptr(),

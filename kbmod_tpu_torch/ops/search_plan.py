@@ -24,6 +24,8 @@ import hashlib
 import numpy as np
 import torch
 
+from kbmod_tpu_torch import tracing
+
 FLT_MAX = float(np.finfo(np.float32).max)
 # Group size and row spread of the grouped kernels' plan (K2, K3, K5).
 GROUP_G = 8
@@ -53,7 +55,9 @@ def _dedup_plan_cached(dxs_np, dys_np, min_factor, max_entries=8):
     over one grid plan once."""
     key = _content_key(dxs_np, dys_np) + (float(min_factor),)
     if key in _DEDUP_CACHE:
+        tracing.count("cache.dedup.hit")
         return _DEDUP_CACHE[key]
+    tracing.count("cache.dedup.miss")
     return _cache_put(_DEDUP_CACHE, key, _dedup_plan(dxs_np, dys_np, min_factor), max_entries)
 
 
@@ -211,6 +215,7 @@ def _plan_groups_cached(dys_np, G, S, max_entries=8, uniform=False):
     dys_np = np.ascontiguousarray(dys_np)
     key = _content_key(dys_np) + (int(G), int(S), bool(uniform))
     hit = _PLAN_CACHE.get(key)
+    tracing.count("cache.group.miss" if hit is None else "cache.group.hit")
     if hit is None:
         plan = _plan_groups_uniform(dys_np, G) if uniform else _plan_groups(dys_np, G, S)
         hit = _cache_put(_PLAN_CACHE, key, plan, max_entries)
@@ -256,6 +261,7 @@ def window_layout_cached(ox, oy, starts, max_entries=8, **kw):
     ox, oy, starts = (np.ascontiguousarray(a, dtype=np.int64) for a in (ox, oy, starts))
     key = _content_key(ox, oy, starts) + tuple(sorted(kw.items()))
     hit = _LAYOUT_CACHE.get(key)
+    tracing.count("cache.layout.miss" if hit is None else "cache.layout.hit")
     if hit is None:
         hit = _cache_put(_LAYOUT_CACHE, key, window_layout(ox, oy, starts, **kw), max_entries)
     return hit

@@ -17,7 +17,10 @@ file (``cnn_model``), and the repository ships none.
 ``KB_SEARCH_CKPT_DIR`` (with ``KB_SEARCH_CKPT_TILE_ROWS``, default 256)
 checkpoints the search per row tile, so that a killed run resumes
 mid-search; ``KB_PROFILE_DIR`` traces the whole run with ``torch.profiler``
-(CPU and CUDA activities) into a Chrome trace file there.
+(CPU and CUDA activities) into a Chrome trace file there, in which the port's
+tracer (``kbmod_tpu_torch.tracing``) draws every phase and stage as a
+``kbmod:<name>`` range, and writes beside it a JSON file of those stages'
+counts, seconds, self seconds and counters (:func:`profiled`).
 
 A WorkUnit (``run_search(..., workunit=...)``, ``run_search_from_work_unit``)
 adds the QA cut on the WorkUnit, the ecliptic angle from its WCS and RA/Dec
@@ -27,6 +30,7 @@ is set, ``run_search_from_work_unit`` applies it with
 stack lacks there and raises AttributeError.
 """
 
+import json
 import logging
 import os
 import time
@@ -40,6 +44,7 @@ try:
 except ImportError:  # pragma: no cover
     psutil = None
 
+from kbmod_tpu_torch import tracing
 from kbmod_tpu_torch.device import device_free_bytes, resolve_device
 from kbmod_tpu_torch.filters.clustering_filters import apply_clustering
 from kbmod_tpu_torch.filters.clustering_grid import apply_trajectory_grid_filter
@@ -263,10 +268,12 @@ def check_gpu_memory(config, stack, trj_generator=None, device=None):
 def profiled(profile_dir, device):
     """Trace the block with ``torch.profiler`` (CPU activity, and CUDA on a
     card) into a Chrome trace ``kbmod_trace_<pid>_<ms>.json`` under
-    ``profile_dir``; no tracing when ``profile_dir`` is empty or None. The
-    trace is stopped and written in a ``finally``, so a failing run still
-    leaves it. The port's kernel wrappers mark their launches
-    ("kbmod K1 psi_phi_conv", ...) with ``record_function``."""
+    ``profile_dir``; no tracing when ``profile_dir`` is empty or None. While
+    the profiler runs, the port's tracer (``kbmod_tpu_torch.tracing``) is on:
+    its spans are the trace's ``kbmod:<stage>`` ranges, and
+    ``kbmod_stages_<pid>_<ms>.json`` beside the trace holds, per span name,
+    its count, seconds, self seconds and counter totals. Both files are
+    written in a ``finally``, so a failing run still leaves them."""
     if not profile_dir:
         yield
         return
@@ -275,13 +282,18 @@ def profiled(profile_dir, device):
     os.makedirs(profile_dir, exist_ok=True)
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
     prof = profile(activities=activities)
+    t0 = time.perf_counter()
     prof.start()
     try:
         yield
     finally:
         prof.stop()
-        path = os.path.join(profile_dir, f"kbmod_trace_{os.getpid()}_{int(time.time() * 1e3)}.json")
+        stem = f"{os.getpid()}_{int(time.time() * 1e3)}.json"
+        path = os.path.join(profile_dir, f"kbmod_trace_{stem}")
         prof.export_chrome_trace(path)
+        stages = tracing.stages([r for r in tracing.records() if r.start >= t0])
+        with open(os.path.join(profile_dir, f"kbmod_stages_{stem}"), "w") as f:
+            json.dump(stages, f, indent=1, sort_keys=True)
         logger.info(f"Profile trace written to {path}.")
 
 
@@ -305,6 +317,7 @@ class SearchRunner:
     def __init__(self, config=None, device=None):
         self.phase_times = {}
         self.phase_memory = {}
+        self._phase_spans = {}
         self.timeout = None
         self.debug = False
         self.config = None
@@ -336,19 +349,28 @@ class SearchRunner:
         return psutil.Process().memory_info().rss
 
     def _start_phase(self, phase_name):
+        """Open the phase's tracer span; ``phase_times`` holds its [start,
+        end] in seconds on the monotonic clock, anchored to Unix time."""
         self._check_timeout()
         logger.debug(f"Starting {phase_name}.")
-        self.phase_times[phase_name] = [time.time(), None]
+        self._phase_spans[phase_name] = tracing.span(phase_name).__enter__()
+        self.phase_times[phase_name] = [tracing.unix_seconds(time.perf_counter()), None]
         self.phase_memory[phase_name] = [self._rss(), None]
 
     def _end_phase(self, phase_name):
         self._check_timeout()
         if phase_name not in self.phase_times:
             raise KeyError(f"Phase {phase_name} has not been started.")
-        self.phase_times[phase_name][1] = time.time()
+        self.phase_times[phase_name][1] = tracing.unix_seconds(time.perf_counter())
+        self._phase_spans.pop(phase_name).__exit__(None, None, None)
         delta_t = self.phase_times[phase_name][1] - self.phase_times[phase_name][0]
         logger.debug(f"Finished {phase_name} in {delta_t} seconds.")
         self.phase_memory[phase_name][1] = self._rss()
+
+    def _close_phases(self):
+        """Close the spans of phases an error left open, innermost first."""
+        while self._phase_spans:
+            self._phase_spans.popitem()[1].__exit__(None, None, None)
 
     def display_phase_stats(self):
         for phase in self.phase_times:
@@ -396,6 +418,7 @@ class SearchRunner:
                 f"Near-duplicate grid prefilter (bin={bin_width}px, dt={max_dt}): "
                 f"{len(arrays['x'])} of {num_raw} kept."
             )
+            tracing.count("rows.near_dup", len(arrays["x"]))
             self._end_phase("near duplicate removal")
 
         num_kept = len(arrays["x"])
@@ -404,29 +427,36 @@ class SearchRunner:
         while batch_start < num_kept:
             self._check_timeout()
             batch_end = min(batch_start + batch_size, num_kept)
-            batch = {k: v[batch_start:batch_end] for k, v in arrays.items()}
-            batch_results = Results.from_trajectories(TrajectoryList(batch), track_filtered=config["track_filtered"])
+            with tracing.span("results.batch"):
+                batch = {k: v[batch_start:batch_end] for k, v in arrays.items()}
+                batch_results = Results.from_trajectories(TrajectoryList(batch),
+                                                          track_filtered=config["track_filtered"])
 
-            if config["generate_psi_phi"]:
-                psi_phi_batch = search.get_all_psi_phi_curves(TrajectoryList(batch))
-                batch_results.add_psi_phi_data(psi_phi_batch[:, :num_times], psi_phi_batch[:, num_times:])
+                if config["generate_psi_phi"]:
+                    with tracing.span("results.curves"):
+                        psi_phi_batch = search.get_all_psi_phi_curves(TrajectoryList(batch))
+                        batch_results.add_psi_phi_data(psi_phi_batch[:, :num_times], psi_phi_batch[:, num_times:])
 
-            if config["sigmaG_filter"]:
-                if not config["generate_psi_phi"]:
-                    raise ValueError("Unable to do sigma-G filtering without psi and phi curves.")
-                apply_clipped_sigma_g(clipper, batch_results)
-                row_mask = np.asarray(batch_results["obs_count"]) >= config["num_obs"]
-                if config["lh_level"] > 0.0:
-                    row_mask = row_mask & (np.asarray(batch_results["likelihood"]) >= config["lh_level"])
-                batch_results.filter_rows(row_mask, "sigma-g")
-                logger.debug(f"After sigma-G filtering, batch size = {len(batch_results)}")
+                if config["sigmaG_filter"]:
+                    if not config["generate_psi_phi"]:
+                        raise ValueError("Unable to do sigma-G filtering without psi and phi curves.")
+                    with tracing.span("results.sigmag"):
+                        apply_clipped_sigma_g(clipper, batch_results)
+                    with tracing.span("results.filter"):
+                        row_mask = np.asarray(batch_results["obs_count"]) >= config["num_obs"]
+                        if config["lh_level"] > 0.0:
+                            row_mask = row_mask & (np.asarray(batch_results["likelihood"]) >= config["lh_level"])
+                        batch_results.filter_rows(row_mask, "sigma-g")
+                    logger.debug(f"After sigma-G filtering, batch size = {len(batch_results)}")
+                    tracing.count("rows.sigmag", len(batch_results))
 
             batches.append(batch_results)
             batch_start += batch_size
 
         # One vstack for the whole loop: per-batch extend() is quadratic
         # in total rows.
-        keep.extend_batches(batches)
+        with tracing.span("results.extend"):
+            keep.extend_batches(batches)
         self._end_phase("load_and_filter_results")
         return keep
 
@@ -439,9 +469,11 @@ class SearchRunner:
             self.device = resolve_device(self._device)
 
         use_gpu = not config["cpu_only"]
-        if use_gpu and self.device.type == "cuda" and not check_gpu_memory(
-            config, stack, trj_generator, self.device
-        ):
+        with tracing.span("runner.memory_check"):
+            fits = not (use_gpu and self.device.type == "cuda") or check_gpu_memory(
+                config, stack, trj_generator, self.device
+            )
+        if not fits:
             raise ValueError("Insufficient device memory to conduct the search.")
 
         search = StackSearch(
@@ -560,7 +592,10 @@ class SearchRunner:
             self._device = device
         self.device = resolve_device(self._device)
         with profiled(os.environ.get("KB_PROFILE_DIR"), self.device):
-            return self._run_search(config, stack, trj_generator, workunit, extra_meta)
+            try:
+                return self._run_search(config, stack, trj_generator, workunit, extra_meta)
+            finally:
+                self._close_phases()
 
     def _run_search(self, config, stack, trj_generator, workunit, extra_meta):
         self.apply_config(config)
@@ -569,19 +604,20 @@ class SearchRunner:
             logger.debug(stat_gpu_memory_mb(self.device))
             logger.debug(str(config))
 
-        # Image QA: drop overly-masked images.
-        if config["max_masked_pixels"] < 1.0:
-            keep_mask = stack.get_masked_fractions() <= config["max_masked_pixels"]
-            if workunit is not None:
-                workunit.filter_images(keep_mask)
-                stack = workunit.im_stack
-            else:
-                stack.filter_images(keep_mask)
-        logger.debug(f"Searching over {stack.num_times} images after the obs-validity cut.")
+        with tracing.span("runner.qa"):
+            # Image QA: drop overly-masked images.
+            if config["max_masked_pixels"] < 1.0:
+                keep_mask = stack.get_masked_fractions() <= config["max_masked_pixels"]
+                if workunit is not None:
+                    workunit.filter_images(keep_mask)
+                    stack = workunit.im_stack
+                else:
+                    stack.filter_images(keep_mask)
+            logger.debug(f"Searching over {stack.num_times} images after the obs-validity cut.")
 
-        # num_obs can never exceed the number of usable (<90% masked)
-        # images; -1 means "derive it from the stack".
-        usable = int(np.count_nonzero(stack.get_masked_fractions() < 0.9))
+            # num_obs can never exceed the number of usable (<90% masked)
+            # images; -1 means "derive it from the stack".
+            usable = int(np.count_nonzero(stack.get_masked_fractions() < 0.9))
         if usable == 0:
             raise ValueError("No valid images in input.")
         if config["num_obs"] == -1 or config["num_obs"] >= usable:
@@ -614,6 +650,7 @@ class SearchRunner:
                 self._end_phase("append_positions_to_results")
 
         # Save results + metadata.
+        tracing.count("rows.final", len(keep))
         self._start_phase("write results")
         meta_to_save = dict(extra_meta) if extra_meta is not None else {}
         if workunit is not None:

@@ -82,6 +82,7 @@ MODULES = [
     ("kbmod_tpu_torch.analysis.analyze_fakes", "Fake-recovery analysis"),
     ("kbmod_tpu_torch.util_functions", "Shared utilities"),
     ("kbmod_tpu_torch.utils.debug_timer", "DebugTimer"),
+    ("kbmod_tpu_torch.tracing", "Spans and counters on the profiler's clock"),
 ]
 
 

@@ -28,11 +28,10 @@ takes the one-device route (K2, or the encoded dispatcher's K3-K5), so
 
 import logging
 import os
-import time
 
 import numpy as np
-import torch
 
+from kbmod_tpu_torch import tracing
 from kbmod_tpu_torch.device import resolve_device
 from kbmod_tpu_torch.ops import search as search_ops
 from kbmod_tpu_torch.ops.psi_phi import PsiPhiArray, fill_psi_phi_array_from_image_arrays
@@ -105,15 +104,12 @@ class StackSearch:
         self.params.y_start_max = self._height
 
         self.timings = {}
-        t0 = time.perf_counter()
-        self.psi_phi_array = PsiPhiArray()
-        fill_psi_phi_array_from_image_arrays(
-            self.psi_phi_array, num_bytes, sci_imgs, var_imgs, psf_kernels, self._zeroed_times,
-            device=self.device,
-        )
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.timings["psi_phi_ms"] = (time.perf_counter() - t0) * 1e3
+        with tracing.span("build", into=self.timings, key="psi_phi_ms", sync=self.device):
+            self.psi_phi_array = PsiPhiArray()
+            fill_psi_phi_array_from_image_arrays(
+                self.psi_phi_array, num_bytes, sci_imgs, var_imgs, psf_kernels, self._zeroed_times,
+                device=self.device,
+            )
         self._psi_phi_preloaded = False
         self._checkpoint_dir = None
         self._checkpoint_tile_rows = 256
@@ -283,7 +279,7 @@ class StackSearch:
     def search_all(self, search_list, on_gpu=True):
         """Score every candidate at every starting pixel; keep the top
         results_per_pixel per pixel; filter by min_lh/min_obs and sort by
-        likelihood (stack_search.cpp:221-284).
+        likelihood (stack_search.cpp:221-284). Traced as the span ``search``.
 
         ``on_gpu=True`` uses GPU-path semantics (insertion gated by min_obs
         and the in-kernel sigma-G filter when enabled); ``False`` uses
@@ -293,6 +289,10 @@ class StackSearch:
         first (:func:`~kbmod_tpu_torch.ops.search.snap_vy_rows`); the
         snapped vy is searched and reported.
         """
+        with tracing.span("search"):
+            self._search_all(search_list, on_gpu)
+
+    def _search_all(self, search_list, on_gpu):
         p = self.params
         max_results = self.compute_max_results()
         p.total_results = max_results
@@ -369,16 +369,19 @@ class StackSearch:
             raw = search_fn(*args, timings=self.timings, **common)
         num_results = len(raw["x"])
         logger.debug(f"Core search returned {num_results} results.")
+        tracing.count("rows.listed", num_results)
 
-        self.results = TrajectoryList(raw)
-        self.results.filter_by_likelihood(p.min_lh)
-        self.results.filter_by_obs_count(p.min_observations)
-        logger.debug(
-            f"After filtering by LH and min_obs {len(self.results)} results "
-            f"({num_results - len(self.results)} removed)."
-        )
-        self.results.sort_by_likelihood()
-        self.results.assert_valid()
+        with tracing.span("search.list"):
+            self.results = TrajectoryList(raw)
+            self.results.filter_by_likelihood(p.min_lh)
+            self.results.filter_by_obs_count(p.min_observations)
+            logger.debug(
+                f"After filtering by LH and min_obs {len(self.results)} results "
+                f"({num_results - len(self.results)} removed)."
+            )
+            self.results.sort_by_likelihood()
+            self.results.assert_valid()
+        tracing.count("rows.searched", len(self.results))
 
     # --- result access ---
 

@@ -13,7 +13,7 @@
   package's ``StackSearch`` results. The two pipeline switches are
   honoured too: set, ``KB_SEARCH_CKPT_DIR`` leaves the search's tiles and
   manifest in its directory (with the rows of a run without it) and
-  ``KB_PROFILE_DIR`` a Chrome trace in its; at their default nothing is
+  ``KB_PROFILE_DIR`` a Chrome trace and its stage file in its; at their default nothing is
   written. Switches that only pick a TPU route are ignored on one device.
 """
 
@@ -218,10 +218,14 @@ def test_pipeline_switches_honoured(monkeypatch, tmp_path, name, default):
         # 18 rows in tiles of 7.
         assert written == ["ckpt/manifest.json", "ckpt/tile_0_7.npz", "ckpt/tile_14_18.npz", "ckpt/tile_7_14.npz"]
     else:
-        assert len(written) == 1 and written[0].startswith("profile/kbmod_trace_"), written
-        with open(tmp_path / written[0]) as f:
+        # The Chrome trace, and beside it the tracer's stage file.
+        assert len(written) == 2 and written[0].startswith("profile/kbmod_stages_"), written
+        assert written[1] == written[0].replace("kbmod_stages_", "kbmod_trace_"), written
+        with open(tmp_path / written[1]) as f:
             trace = json.load(f)
         assert trace["traceEvents"]
+        with open(tmp_path / written[0]) as f:
+            assert {"KBMOD", "build", "search"} <= set(json.load(f))
 
 
 def test_route_switches_ignored(monkeypatch):
