@@ -15,8 +15,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    uint8/uint16 codes, T up to 300; K2-K5 with lists of K = 128, past the
    64 that registers hold; the grouped kernels K2, K5 and K3 at
    T = 1,000-1,500, past the T their tables once capped; dedup; K6 in
-   modes A, B and C), and each redesigned kernel's ptxas registers and
-   spills;
+   modes A, B and C; K7 against the exact sigma-G twin on the card, lh
+   within 1e-5 relative, also past T = 128 and K = 32), and each redesigned
+   kernel's ptxas registers and spills;
 4. the float main path at full width: a 64 x 2048 x 2048 FakeDataSet stack
    (PSF sigma 1.4, 1% masked, one injected object) searched by
    ``StackSearch(..., -1).search_all`` over a 41 x 41 KBMODV1Search grid,
@@ -45,7 +46,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``KB_SIGMAG_AUTO=0`` (K2), the float full frame with
    ``KB_COMPACT_RESULTS=0`` (K2; the same rows as the compact layout);
 8. ``KB_SIGMAG_MODE=exact`` on a 64-row float band over every candidate
-   (plain PyTorch on the card, no kernel): its time and rows per second,
+   (K7, no other kernel and no twin): its time and rows per second,
    every kept slot's clipped lh against the host's re-score of the same
    curves, the object best;
 9. stamp vetting: P3, the float pipeline with ``cnn_filter`` on a resnet18
@@ -73,7 +74,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    kernel; the same rows, lh within the float64 bound), sigma-G on the
    256-row band (K2; rows equal); the u8 candidates and time runs' memory
    peaks within ``search_memory_budget``; then
-   ``sharded_sigmag_exact_topk`` on a 16-row band and
+   ``sharded_sigmag_exact_topk`` on a 16-row band (K7 a shard) and
    ``sharded_psi_phi_build`` (K1 a shard), each equal to one device; each
    wall beside the one-device wall;
 12. profile: one P1 pipeline run with KB_PROFILE_DIR, whose Chrome trace
@@ -153,7 +154,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    lists of K = 128 (kept in the maps) on the band; K5 through the
    dispatcher (dedup + K5 + expansion) at the JAX package's
    ``midscale_kernel`` shapes (T = 64, 2048 x 2048, C = 33,153, K = 8);
-   and K6's three modes at the script's defaults and at NG = 3,015;
+   K6's three modes at the script's defaults and at NG = 3,015; and K7 at
+   the regression's shapes (20 x 1024 x 512 planes, the 1,044 x 532
+   window of its pixel buffers, its 1,352 candidates, K = 8, min_obs 15,
+   lh_level 25) beside its twin on the card and its bound;
    launches summed over every path above;
 19. as the last line, {"ok": true, "device": {...}}.
 
@@ -184,11 +188,11 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # (K1).
 WARP_INSTR_PER_S = 132 * 4 * 1.98e9
 SOURCES = ["psi_phi_conv", "search_topk", "search_topk_encoded", "search_topk_grouped", "search_topk_encoded_grouped",
-           "exactrow_microbench"]
+           "exactrow_microbench", "sigmag_exact_topk"]
 # Sources whose kernels were redesigned for the card: their ptxas register
 # and spill lines are printed on their own.
 REPORTED = ("psi_phi_conv", "search_topk", "search_topk_encoded", "search_topk_grouped", "search_topk_encoded_grouped",
-            "exactrow_microbench")
+            "exactrow_microbench", "sigmag_exact_topk")
 # The pipelines' generator: the main path's 41 x 41 grid as a configuration
 # gives it.
 PIPELINE_GENERATOR = {"name": "KBMODV1SearchConfig", "v_arr": [5.0, 45.0, 41], "ang_arr": [0.5, 0.5, 41],
@@ -633,6 +637,77 @@ def check_k6(dev):
     return 0.0
 
 
+def _k7_against_twin(tag, args, kw):
+    """K7 (``search_topk_sigmag_exact`` on the card) against its plain twin
+    on the card (the dispatch held to the twin): the same slots filled, lh
+    within 1e-5 * max(1, |lh|) at every slot (the sums run in another order;
+    where the indices differ, the two candidates' lh tie within that).
+    Returns (K7's maps, the twin's, its ms, the largest gap over its
+    bound, the slots whose indices differ)."""
+    from kbmod_tpu_torch.ops import search as ops
+
+    got = ops.search_topk_sigmag_exact(*args, **kw)
+    route = ops.k7_route
+    ops.k7_route = lambda device: "twin"
+    try:
+        t0 = time.perf_counter()
+        ref = ops.search_topk_sigmag_exact(*args, **kw)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        ops.k7_route = route
+    (g_lh, g_idx), (r_lh, r_idx) = ([a.cpu().numpy() for a in m] for m in (got, ref))
+    if not np.array_equal(g_idx < 0, r_idx < 0):
+        raise AssertionError(f"K7 {tag}: {int(((g_idx < 0) != (r_idx < 0)).sum())} slots filled on one side only")
+    filled = r_idx >= 0
+    bound_ = 1e-5 * np.maximum(1.0, np.abs(r_lh[filled].astype(np.float64)))
+    gap = np.abs(g_lh[filled].astype(np.float64) - r_lh[filled]) / bound_
+    worst = float(gap.max()) if gap.size else 0.0
+    if worst > 1.0:
+        raise AssertionError(f"K7 {tag}: lh {worst:.3g} times the bound from the twin's")
+    return got, ref, plain_ms, worst, int((g_idx != r_idx).sum())
+
+
+def check_k7(dev):
+    """K7 against its twin on the card: T = 20, 12 and 150 (past the 128
+    samples whose curves K7 sorts in local memory, so they are walked) over a
+    64 x 96 window starting at negative x and y, 60 candidates (a third
+    leaving the frame, two copies of candidate 3 for exact ties), 5% masked
+    samples, spikes of both signs for the clipping to cut, K = 8, 1 and 40
+    (past the 32 held in registers, so the list stays in the maps), both
+    signs of the coefficient, a non-zero cand_offset. Returns the largest lh
+    gap over its bound."""
+    from kbmod_tpu_torch.ops.search import trajectory_offsets
+
+    worst = 0.0
+    for T, K, coeff in ((20, 8, 0.7413), (12, 1, -0.7413), (150, 40, 0.7413)):
+        rng = np.random.default_rng(T)
+        H, W, C = 64, 96, 60
+        valid = (rng.uniform(size=(T, H, W)) > 0.05).astype(np.uint8)
+        psi = rng.normal(1.0, 0.5, (T, H, W))
+        hit = rng.random((T, H, W)) < 0.05
+        psi[hit] = rng.choice([-30.0, 30.0], int(hit.sum()))
+        planes = [torch.as_tensor(a, device=dev) for a in (
+            np.where(valid, psi, 0).astype(np.float32),
+            np.where(valid, rng.uniform(0.5, 2.0, (T, H, W)), 0).astype(np.float32), valid)]
+        speed = np.where(np.arange(C) % 3 == 0, 12.0, 3.0)
+        dxs, dys = trajectory_offsets(rng.uniform(-1, 1, C) * speed, rng.uniform(-1, 1, C) * speed,
+                                      np.arange(T) * 0.3 * min(1.0, 20 / T))
+        dxs[[10, 40]], dys[[10, 40]] = dxs[3], dys[3]
+        kw = dict(x_min=-3, x_max=93, y_min=-2, y_max=62, k_results=K, sgl_L=0.25, sgl_H=0.75, cand_offset=500)
+        args = (*planes, torch.as_tensor(dxs, device=dev), torch.as_tensor(dys, device=dev), T // 2, 0.5, coeff)
+        got, _, _, gap, differ = _k7_against_twin(f"T={T} K={K}", args, kw)
+        idx = got[1].cpu().numpy()
+        for s in np.nonzero((idx == 503).any(axis=0).ravel() & (idx == 510).any(axis=0).ravel())[0]:
+            col = list(idx.reshape(K, -1)[:, s])
+            if col.index(503) > col.index(510):
+                raise AssertionError(f"K7 T={T}: exact tie ranked against the index at slot column {s}")
+        worst = max(worst, gap)
+        log(f"K7 against its twin, T={T} K={K} coeff {coeff}: lh within {gap:.3f} of the bound, {differ} slots "
+            f"with another index (ties)")
+    return worst
+
+
 def k6_path():
     """K6's own path: the micro-benchmark script, run as a user runs it, with
     the counts at 0 just before and read just after."""
@@ -1050,11 +1125,11 @@ def switch_path(search, searches, obj, cands, full_rows, full_t, band=256):
 
 def exact_path(search, obj, cands, card, rows=64):
     """KB_SIGMAG_MODE=exact on a ``rows``-row float band holding the object,
-    over every candidate: plain PyTorch on the card (the reference runs it
-    in XLA), no kernel and no twin. The object must be the best result;
+    over every candidate: K7 on the card (the reference runs it in XLA), no
+    other kernel and no twin. The object must be the best result;
     every kept slot's clipped lh must equal the host ``clipped_sigmag_scores``
     of the same curves within twice the Queue 3 float64 bound. Returns its
-    ms, the rows per second and the kept slots checked."""
+    launches."""
     from kbmod_tpu_torch.ops import search as ops
 
     T, H, W = search.num_images, search.height, search.width
@@ -1079,11 +1154,11 @@ def exact_path(search, obj, cands, card, rows=64):
     try:
         with switched(KB_SIGMAG_MODE="exact"):
             _, launches, wall = drive(f"exact sigma-G, float band y=[{y0}, {y0 + rows}), {len(cands)} candidates",
-                                      (), lambda: search.search_all(cands, True))
+                                      ("sigmag_exact_topk",), lambda: search.search_all(cands, True))
     finally:
         ops.search_topk_sigmag_exact = exact
-    if max(launches.values()) != 0:
-        raise AssertionError(f"exact sigma-G ran a search kernel: {launches}")
+    if launches["sigmag_exact_topk"] != 1 or sum(launches.values()) != 1:
+        raise AssertionError(f"exact sigma-G: not one K7 launch alone: {launches}")
     best = search.get_results(0, 1)[0]
     _check_best("exact sigma-G band", best, obj, T // 2)
 
@@ -1111,7 +1186,7 @@ def exact_path(search, obj, cands, card, rows=64):
         f"within the bound of the host re-score (largest gap {gap.max():.3g}, {float((gap / tol).max()):.3f} "
         f"of its bound); search stage {search.timings['search_ms']:.1f} ms, assembly "
         f"{search.timings['assemble_ms']:.1f} ms; best {best}; {card}")
-    return ms, rows / (ms / 1e3), len(k)
+    return launches
 
 
 def vetting_path(stack, obj, card, dev, generator=None, timed=VETTING_STAMPS):
@@ -1585,11 +1660,13 @@ def sharded_path(search, searches, stack, obj, cands, full_rows, card, dev, band
     torch.cuda.synchronize()
     times["two"] = (time.perf_counter() - t0) * 1e3
     launches, twin_calls = read_counts()
-    if max(launches.values()) != 0 or max(twin_calls.values()) != 0:
-        raise AssertionError(f"sharded exact sigma-G ran a kernel or twin: {launches}, {twin_calls}")
+    if (launches["sigmag_exact_topk"] != len(list(mesh.local_shards())) or sum(launches.values())
+            != launches["sigmag_exact_topk"] or max(twin_calls.values()) != 0):
+        raise AssertionError(f"sharded exact sigma-G: not one K7 launch a shard alone: {launches}, {twin_calls}")
+    _add(total, launches)
     if not (torch.equal(one[0], two[0]) and torch.equal(one[1], two[1])):
         raise AssertionError("sharded exact sigma-G: the maps differ from the one-device exact search")
-    walls["exact sigma-G, 16 rows (plain)"] = (times["two"], times["one"])
+    walls["exact sigma-G, 16 rows (K7)"] = (times["two"], times["one"])
     log(f"sharded exact sigma-G, 16 rows: maps equal to one device; {times['two']:.1f} ms against "
         f"{times['one']:.1f} ms; {card}")
     del one, two
@@ -3081,6 +3158,58 @@ def time_midscale(dev, T=64, size=2048, C=257 * 129, K=8):
     return dict(ms=ms, evals_per_s=evals / (ms / 1e3), bound_ms=bound_ms, route=route, cut=cut)
 
 
+def time_k7(dev, seed=1001):
+    """K7 at the regression cell's shapes: the reference's 20 x 1024 x 512
+    stack (``scripts.regression.make_stack``), the 1,044 x 532 window of its
+    10-pixel buffers, its 26 x 52 EclipticCenteredSearch grid, K = 8,
+    min_obs 15, lh_level 25, sigma-G 25-75: median of 3 launches by CUDA
+    events, the twin once on the card (held to K7 as ``_k7_against_twin``),
+    the pairs clipped (the counter ``exact.clipped`` of a traced launch) and
+    the bound: the planes (psi, phi, validity) and offsets read once, the
+    maps written once; three float adds a valid sample and a sqrt, a divide
+    and K compares a pair."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kbmod_tpu_torch import tracing
+    from kbmod_tpu_torch.filters.sigma_g_filter import SigmaGClipping
+    from kbmod_tpu_torch.ops import search as ops
+    from kbmod_tpu_torch.ops.search import trajectory_offsets
+    from kbmod_tpu_torch.scripts import regression as reg
+    from kbmod_tpu_torch.search import StackSearch
+    from kbmod_tpu_torch.trajectory_generator import create_trajectory_generator
+
+    stack = reg.make_stack(seed)
+    search = StackSearch(stack.sci, stack.var, stack.psfs, stack.zeroed_times, -1, device=dev)
+    psi, phi, valid = search.psi_phi_array.decoded_psi_phi()
+    T, H, W = psi.shape
+    cands = list(create_trajectory_generator(reg.config_dict()["generator_config"]))
+    dxs, dys = trajectory_offsets(np.array([c.vx for c in cands], np.float32),
+                                  np.array([c.vy for c in cands], np.float32), search.zeroed_times)
+    dxs, dys = torch.as_tensor(dxs, device=dev), torch.as_tensor(dys, device=dev)
+    C, K = len(cands), 8
+    bounds = dict(x_min=-10, x_max=W + 10, y_min=-10, y_max=H + 10)
+    SH, SW = H + 20, W + 20
+    args = (psi, phi, valid, dxs, dys, 15, 25.0, SigmaGClipping.find_sigma_g_coeff(25, 75))
+    kw = dict(k_results=K, sgl_L=0.25, sgl_H=0.75, **bounds)
+    ops.search_topk_sigmag_exact(*args, **kw)
+    ms = event_ms(lambda: ops.search_topk_sigmag_exact(*args, **kw), 3)
+    log(f"K7 timed ({SH}x{SW}, C={C}, K={K}); clocks (sm, max sm, power, temperature): {clocks()}")
+    tracing.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        ops.search_topk_sigmag_exact(*args, **kw)
+    clipped = tracing.totals().get("exact.clipped", 0)
+    _, _, plain_ms, gap, differ = _k7_against_twin("at the regression's shapes", args, kw)
+    n_samples = _valid_samples(valid, dxs + bounds["x_min"], dys + bounds["y_min"], SH, SW)
+    nbytes = (4 + 4 + 1) * T * H * W + 8 * C * T + 8 * K * SH * SW
+    bound_ms, bound_by = bound(nbytes, 3 * n_samples + (2 + K) * SH * SW * C)
+    log(f"K7 at the regression's shapes: {clipped} of {SH * SW * C} pairs clipped "
+        f"({clipped / (SH * SW * C):.3g}); lh within {gap:.3f} of the bound from the twin's, {differ} slots with "
+        f"another index (ties)")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms, bound_by=bound_by, err=gap,
+                shape=f"T={T} {SH}x{SW} window, C={C}, K={K}, {n_samples} valid samples, {clipped} pairs clipped",
+                evals_per_s=SH * SW * C / (ms / 1e3))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--checks-only", action="store_true", help="build and check the kernels, then stop")
@@ -3125,6 +3254,7 @@ def main():
     err_enc = check_encoded(dev)
     err_long = check_long_t(dev)
     err_k6 = check_k6(dev)
+    err_k7 = check_k7(dev)
     log(f"kernel checks: {time.perf_counter() - t0:.1f} s")
     if args.checks_only:
         log(card)
@@ -3146,7 +3276,7 @@ def main():
     searches, sparse, launches_q = phase("quantized path", quantized_path, stack, obj, cands, obj_c)
     launches_p, _, _ = phase("pipelines", pipeline_path, stack, obj, card, dev)
     launches_s = phase("switches", switch_path, search, searches, obj, cands, full_rows, full_t)
-    phase("exact sigma-G", exact_path, search, obj, cands, card)
+    launches_x = phase("exact sigma-G", exact_path, search, obj, cands, card)
     vetting = phase("vetting", vetting_path, stack, obj, card, dev)
     launches_c, _ = phase("ckpt", ckpt_path, search, searches, stack, cands, full_rows, full_t, args.seed, card)
     launches_sh, _ = phase("sharded", sharded_path, search, searches, stack, obj, cands, full_rows, card, dev)
@@ -3181,10 +3311,12 @@ def main():
     torch.cuda.empty_cache()
     mid = time_midscale(dev)
     k6 = time_k6(dev)
+    k7 = time_k7(dev)
     for name, r in (("K1 psi_phi_conv", k1), ("K2 search_topk", k2), ("K2 search_topk, band", k2_band),
                     ("K2 search_topk, band, K = 128", k2_long), ("K3 search_encoded", k3),
                     ("K3 search_encoded, band, K = 128", k3_long), ("K4 search_paired", k4),
-                    ("K5 search_grouped", k5), ("K5 search_grouped, band", k5_band)):
+                    ("K5 search_grouped", k5), ("K5 search_grouped, band", k5_band),
+                    ("K7 sigmag_exact_topk, regression", k7)):
         log(f"{name} at {r['shape']}: {r['ms']:.3f} ms, twin {r['plain_ms']:.1f} ms, "
             f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}), library {r['library_ms']}"
             + (f", {r['evals_per_s']:.4g} evals/s" if "evals_per_s" in r else ""))
@@ -3200,7 +3332,7 @@ def main():
                     ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                     library_ms=r["library_ms"])
 
-    launches = {k: launches_f[k] + launches_q[k] + launches_p.get(k, 0) + launches_s.get(k, 0)
+    launches = {k: launches_f[k] + launches_q[k] + launches_p.get(k, 0) + launches_s.get(k, 0) + launches_x.get(k, 0)
                 + vetting["launches"].get(k, 0) + launches_c.get(k, 0) + launches_sh.get(k, 0)
                 + launches_prof.get(k, 0) + launches_wu.get(k, 0) + launches_disc.get(k, 0)
                 + launches_survey.get(k, 0) + launches_ex.get(k, 0) for k in launches_f}
@@ -3219,6 +3351,10 @@ def main():
         # launches are those of its own path, the micro-benchmark script.
         entry("exactrow_accumulate", "exactrow_microbench.cu", "scripts/exactrow_microbench.py:49", launches_k6,
               err_k6, k6[(K6_MIDSCALE_NG, "C")]),
+        # K7 replaces no Pallas kernel: the JAX package runs this search in
+        # XLA. Its error is the largest lh gap over its bound (1e-5 relative).
+        entry("sigmag_exact_topk", "sigmag_exact_topk.cu", "search.py search_topk_sigmag_exact (XLA)",
+              launches["sigmag_exact_topk"], err_k7, k7),
     ]
     walls["kernel timings"] = time.perf_counter() - t_timing
     log("phase walls (s, host clock): " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()) + f"; {card}")

@@ -15,8 +15,9 @@ With the in-kernel sigma-G filter the search keeps an over-provisioned pool
 by unclipped lh (``KB_SIGMAG_TOPK_FACTOR`` times K) and re-ranks it by
 clipped lh, refining the pixels whose membership the re-rank changed
 (unless ``KB_SIGMAG_AUTO=0``); ``KB_SIGMAG_MODE=exact`` instead scores
-every candidate by its clipped lh (:func:`search_topk_sigmag_exact`, plain
-PyTorch on the search's device, as the JAX package runs it in XLA).
+every candidate by its clipped lh (:func:`search_topk_sigmag_exact`: kernel
+K7, ops/sigmag_exact_kernel.py, on a card; plain PyTorch on the CPU, as the
+JAX package runs it in XLA).
 """
 
 import logging
@@ -31,6 +32,7 @@ from kbmod_tpu_torch import tracing
 from kbmod_tpu_torch.ops.psi_phi import _f32, _storage, code_pair_views, interleave_code_pairs
 from kbmod_tpu_torch.ops.search_encoded import search_topk_encoded
 from kbmod_tpu_torch.ops.search_kernel import search_topk
+from kbmod_tpu_torch.ops.sigmag_exact_kernel import k7_route, sigmag_exact_topk
 
 logger = logging.getLogger("kbmod.search")
 
@@ -408,6 +410,21 @@ def _sqrt_rn(x):
     return torch.sqrt(x.double()).float()
 
 
+def _percentile_indices(n, sgl_L, sgl_H):
+    """The indices (iL, iM, iH) of the percentiles sgl_L, 0.5 and sgl_H in
+    n sorted values (an int64 tensor of counts), in float64 as numpy
+    computes them: the reference's ``int(ceil(n*q) + 0.001) - 1``, clamped
+    to [0, max(n - 1, 0)], with q clamped to [1e-4, 0.9999]."""
+    nf = n.to(torch.float64)
+    top = torch.clamp(n - 1, min=0)
+
+    def pct_idx(q):
+        idx = torch.floor(torch.ceil(nf * q) + 0.001).to(torch.int64) - 1
+        return torch.minimum(torch.clamp(idx, min=0), top)
+
+    return pct_idx(max(float(sgl_L), 0.0001)), pct_idx(0.5), pct_idx(min(float(sgl_H), 0.9999))
+
+
 def _clipped_scores(psi_v, phi_v, ok, sgl_L, sgl_H, coeff, width=2.0):
     """Torch counterpart of :func:`clipped_sigmag_scores` (the JAX package's
     ``_clipped_scores_jnp``), on the device of its inputs: (N, T) float32
@@ -431,17 +448,7 @@ def _clipped_scores(psi_v, phi_v, ok, sgl_L, sgl_H, coeff, width=2.0):
     psi_sorted = torch.gather(torch.where(ok, psi_v, zero), 1, order)
     phi_sorted = torch.gather(torch.where(ok, phi_v, zero), 1, order)
 
-    nf = n.to(torch.float64)
-    top = torch.clamp(n - 1, min=0)
-
-    def pct_idx(q):
-        # The reference's indexing: int(ceil(n*q) + 0.001) - 1.
-        idx = torch.floor(torch.ceil(nf * q) + 0.001).to(torch.int64) - 1
-        return torch.minimum(torch.clamp(idx, min=0), top)
-
-    iL = pct_idx(max(float(sgl_L), 0.0001))
-    iM = pct_idx(0.5)
-    iH = pct_idx(min(float(sgl_H), 0.9999))
+    iL, iM, iH = _percentile_indices(n, sgl_L, sgl_H)
     vL, vM, vH = (vals.gather(1, i[:, None])[:, 0] for i in (iL, iM, iH))
     sigma_g = _f32(coeff, dev) * (vH - vL)
     reach = _f32(width, dev) * sigma_g
@@ -504,10 +511,20 @@ def search_topk_sigmag_exact(
     psi, phi (T, H, W) float32 zero-filled and valid (T, H, W) uint8 on the
     search's device; dxs, dys (C, T) integer offsets. Returns (K, SH, SW)
     float32 lh (-FLT_MAX where empty) and int32 candidate indices (-1), on
-    the planes' device. Plain PyTorch: the reference runs this in XLA.
+    the planes' device.
+
+    On a card (``sigmag_exact_kernel.k7_route``) this is one launch of
+    kernel K7 (``row_tile`` unused), at any T and K; on the CPU, the plain
+    PyTorch twin below, as the reference runs it in XLA.
     """
     T = psi.shape[0]
     dev = psi.device
+    if k7_route(dev.type) == "kernel":
+        pct_idx = torch.stack(_percentile_indices(torch.arange(T + 1), sgl_L, sgl_H), 1).int()
+        return sigmag_exact_topk(
+            psi, phi, valid, dxs, dys, min_obs, min_lh, sigmag_coeff, x_min=x_min, x_max=x_max, y_min=y_min,
+            y_max=y_max, k_results=k_results, pct_idx=pct_idx, cand_offset=cand_offset,
+        )
     dxs = torch.as_tensor(dxs, device=dev).to(torch.int64)
     dys = torch.as_tensor(dys, device=dev).to(torch.int64)
     C = dxs.shape[0]

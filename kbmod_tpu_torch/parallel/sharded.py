@@ -390,9 +390,10 @@ def sharded_sigmag_exact_topk(
     min_obs=0.0, min_lh=0.0, sigmag_coeff=-1.0, sgl_L=0.25, sgl_H=0.75,
     row_tile=search_ops.EXACT_ROW_TILE, replicas=None,
 ):
-    """The exact sigma-G search (``ops.search.search_topk_sigmag_exact``,
-    plain PyTorch) sharded over candidates: each shard scores its slice
-    with global indices on its device, then the maps merge. Clipped gating
+    """The exact sigma-G search (``ops.search.search_topk_sigmag_exact``:
+    one K7 launch a shard on a card, plain PyTorch on the CPU) sharded over
+    candidates: each shard scores its slice with global indices (its
+    ``cand_offset``) on its device, then the maps merge. Clipped gating
     is per candidate, so the result equals the single-device search.
     psi, phi, valid are float planes."""
     dxs = np.asarray(dxs, dtype=np.int32)

@@ -104,9 +104,10 @@ def _counted():
     from kbmod_tpu_torch.ops.conv_kernel import psi_phi_conv, psi_phi_conv_plain
     from kbmod_tpu_torch.ops.exactrow_kernel import exactrow_accumulate, exactrow_accumulate_plain
     from kbmod_tpu_torch.ops.search_kernel import search_topk, search_topk_shift
+    from kbmod_tpu_torch.ops.sigmag_exact_kernel import sigmag_exact_topk
 
     kernels = [psi_phi_conv, search_topk, ek.search_encoded, ek.search_paired, ek.search_grouped,
-               exactrow_accumulate]
+               exactrow_accumulate, sigmag_exact_topk]
     twins = [psi_phi_conv_plain, search_topk_shift, ek.search_topk_encoded_shift, exactrow_accumulate_plain]
     return {fn.__name__: fn for fn in kernels}, {fn.__name__: fn for fn in twins}
 

@@ -47,6 +47,7 @@ MODULES = [
     ("kbmod_tpu_torch.ops.search_encoded_kernel",
      "K3, K4, K5: the quantized top-K searches as CUDA kernels and their plain PyTorch twin"),
     ("kbmod_tpu_torch.ops.exactrow_kernel", "K6: K5's packed inner loop micro-benchmark as a CUDA kernel and its twin"),
+    ("kbmod_tpu_torch.ops.sigmag_exact_kernel", "K7: the exact in-search sigma-G top-K as a CUDA kernel"),
     ("kbmod_tpu_torch.ops.stamps", "On-device stamp coadds"),
     ("kbmod_tpu_torch.ops.reproject", "On-device adaptive reprojection"),
     ("kbmod_tpu_torch.ops.convolve", "Masked PSF convolution"),

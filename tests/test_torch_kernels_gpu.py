@@ -27,6 +27,8 @@ from kbmod_tpu_torch.ops import search_plan
 from kbmod_tpu_torch.ops.psi_phi import code_pair_views
 from kbmod_tpu_torch.ops.search_plan import _plan_groups
 
+import test_torch_sigmag_exact_kernel as exact_cases
+
 pytestmark = pytest.mark.gpu
 
 
@@ -610,44 +612,51 @@ def test_search_runner_on_card_equals_cpu(dev, tmp_path, num_bytes, gpu_filter):
     np.testing.assert_allclose(got["coadd_mean"], ref["coadd_mean"], rtol=1e-6)
 
 
-def test_exact_sigmag_on_card_equals_cpu(dev, monkeypatch):
-    """KB_SIGMAG_MODE=exact on the card against the port's CPU run of the
-    same crop. The maps: indices equal except where two candidates' clipped
-    lh tie within the tolerance, lh within 1e-5 * max(1, |lh|) (ROADMAP
-    Queue 3; the curves' sums run in another order on the card). The
-    ``StackSearch`` rows: equal, lh and flux bit for bit (the assembly
-    re-scores the same gathered samples on the host)."""
-    from kbmod_tpu_torch.fake_data.fake_data_creator import FakeDataSet, create_fake_times
+@pytest.mark.parametrize("case", list(exact_cases.CASES))
+def test_exact_sigmag_on_card_equals_cpu(dev, case):
+    """``search_topk_sigmag_exact`` on the card (K7 at every T and K: past
+    128 samples its clipped curves are walked, past a list of 32 the list
+    stays in the maps) against the port's CPU twin on the same planes
+    (tests/test_torch_sigmag_exact_kernel.py's cases).
+    The maps: indices equal except where two candidates' clipped lh tie
+    within the tolerance, lh within 1e-5 * max(1, |lh|) (ROADMAP Queue 3;
+    the curves' sums run in another order on the card). While tracing is
+    on, every call is one ``kernel.K7.sigmag_exact`` span and reports
+    ``exact.clipped``; no call runs the twin on the card."""
+    from kbmod_tpu_torch import tracing
     from kbmod_tpu_torch.ops import search as ops
+    from kbmod_tpu_torch.ops import sigmag_exact_kernel as k7
+
+    planes, dxs, dys, gates, kw = exact_cases.exact_case(**exact_cases.CASES[case])
+    K = kw["k_results"]
+    on_card = [torch.as_tensor(a, device=dev) for a in planes]
+    launches = k7.sigmag_exact_topk.launches
+    tracing.reset()
+    with torch.profiler.profile():
+        got = [a.cpu().numpy() for a in ops.search_topk_sigmag_exact(*on_card, dxs, dys, *gates, **kw)]
+    spans = [r for r in tracing.records() if r.name == "kernel.K7.sigmag_exact"]
+    counts = tracing.totals()
+    assert k7.sigmag_exact_topk.launches == launches + 1 and len(spans) == 1
+    assert counts.get("exact.clipped", 0) > 0 and not any(name.startswith("route.") for name in counts)
+    ref = [a.numpy() for a in ops.search_topk_sigmag_exact(*(torch.as_tensor(a) for a in planes), dxs, dys, *gates,
+                                                           **kw)]
+    exact_cases.assert_maps_match(got, ref, exact_cases.own_maps(planes, dxs, dys, gates, kw), kw["cand_offset"])
+    if case == "ties":
+        # Candidate 2 and its copies tie exactly: the lower index first.
+        col = got[1].reshape(K, -1)
+        for s in np.nonzero((col == 2).any(axis=0) & (col == 5).any(axis=0))[0]:
+            assert list(col[:, s]).index(2) < list(col[:, s]).index(5)
+
+
+def test_exact_sigmag_search_all_on_card_equals_cpu(dev, monkeypatch):
+    """KB_SIGMAG_MODE=exact through ``StackSearch.search_all`` on the card
+    (K7) against the CPU run of the same planes: the rows equal, lh and flux
+    bit for bit (the assembly re-scores the same gathered samples on the
+    host)."""
+    from kbmod_tpu_torch.fake_data.fake_data_creator import FakeDataSet, create_fake_times
+    from kbmod_tpu_torch.ops.sigmag_exact_kernel import sigmag_exact_topk
     from kbmod_tpu_torch.search import StackSearch, Trajectory
     from kbmod_tpu_torch.trajectory_generator import KBMODV1Search
-
-    rng = np.random.default_rng(31)
-    T, H, W, C, K = 12, 24, 40, 30, 4
-    valid = (rng.uniform(size=(T, H, W)) > 0.05).astype(np.uint8)
-    psi = rng.normal(1.0, 0.5, (T, H, W))
-    hit = rng.random((T, H, W)) < 0.05
-    psi[hit] = rng.choice([-30.0, 30.0], int(hit.sum()))
-    psi = np.where(valid, psi, 0).astype(np.float32)
-    phi = np.where(valid, rng.uniform(0.5, 2.0, (T, H, W)), 0).astype(np.float32)
-    dxs, dys = trajectory_offsets(rng.uniform(-3, 3, C), rng.uniform(-3, 3, C), np.arange(T) * 0.3)
-    kw = dict(x_min=-2, x_max=W, y_min=0, y_max=H, k_results=K, sgl_L=0.25, sgl_H=0.75, row_tile=7)
-    out = {}
-    for where in (dev, torch.device("cpu")):
-        planes = [torch.as_tensor(a, device=where) for a in (psi, phi, valid)]
-        out[where.type] = [a.cpu().numpy() for a in ops.search_topk_sigmag_exact(*planes, dxs, dys, 4.0, 0.5, 0.7413,
-                                                                                  **kw)]
-        own = [ops.search_topk_sigmag_exact(*planes, dxs[c:c + 1], dys[c:c + 1], 4.0, 0.5, 0.7413,
-                                            **dict(kw, k_results=1))[0][0].cpu().numpy() for c in range(C)]
-        out[where.type + "_own"] = own
-    (g_lh, g_idx), (r_lh, r_idx) = out["cuda"], out["cpu"]
-    bound = 1e-5 * np.maximum(1.0, np.abs(r_lh))
-    assert np.array_equal(g_idx < 0, r_idx < 0) and (g_idx >= 0).sum() > 0.5 * g_idx.size
-    same = g_idx == r_idx
-    assert np.all(np.abs(g_lh[same & (g_idx >= 0)] - r_lh[same & (g_idx >= 0)]) <= bound[same & (g_idx >= 0)])
-    for k, i, j in np.argwhere(~same):
-        a, b = g_idx[k, i, j], r_idx[k, i, j]
-        assert abs(out["cpu_own"][a][i, j] - out["cpu_own"][b][i, j]) <= 2 * bound[k, i, j]
 
     monkeypatch.setenv("KB_SIGMAG_MODE", "exact")
     times = create_fake_times(10, t0=57130.2, obs_per_day=2, intra_night_gap=0.05)
@@ -662,7 +671,9 @@ def test_exact_sigmag_on_card_equals_cpu(dev, monkeypatch):
         s.set_results_per_pixel(2)
         s.set_min_obs(5)
         s.enable_gpu_sigmag_filter([0.25, 0.75], 0.7413, 3.0)
+        launches = sigmag_exact_topk.launches
         s.search_all(list(KBMODV1Search(5, 2.0, 6.0, 5, -0.6, 0.2)), True)
+        assert sigmag_exact_topk.launches == launches + (where is dev)
         rows.append(s.results.get_arrays())
     for k in ("x", "y", "vx", "vy", "obs_count", "lh", "flux"):
         np.testing.assert_array_equal(rows[0][k], rows[1][k], err_msg=k)
