@@ -1,7 +1,7 @@
 """Shared pieces of the benchmark's own tests: the ``gpu`` marker, a fixture
-that skips without a card, and the cells cut to a size the CPU runs in
+that skips without a card, the cells cut to a size the CPU runs in
 seconds (the same configurations, limits and traffic keys, smaller
-stacks and grids)."""
+stacks and grids), and a stand-in loop for ``run.measure``."""
 
 import copy
 
@@ -50,3 +50,38 @@ def tiny_run(name, seed=2**31 + 11, traced=False):
 
     bench, cell, config, traffic = tiny_cell(name)
     return bench, cell, StackSearchCell(cell, config, traffic, seed, "cpu", traced=traced)
+
+
+class StandIn:
+    """A loop that does no work: its window takes 2 s for 3 stacks."""
+
+    def __init__(self, failed=0, numbers=None):
+        self.device = torch.device("cpu")
+        self.records, self.failed, self.evals = [], failed, 1000
+        self.settings, self.traffic = {}, {"limits": {"gap": 1.0}}
+        self._numbers = numbers or {"gap": 0.5}
+
+    def setup(self):
+        pass
+
+    def window(self, seconds):
+        self.records = [{} for _ in range(3)]
+        return 2.0, 3 + self.failed
+
+    def end_to_end(self, window_s):
+        return {"stack_evals_per_s": self.evals * len(self.records) / window_s}
+
+    def stack_summary(self):
+        return {}
+
+    def memory_peak(self):
+        return 0
+
+    def release(self):
+        pass
+
+    def reference_stacks(self):
+        return None
+
+    def numbers(self, refs):
+        return self._numbers

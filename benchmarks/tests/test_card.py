@@ -30,4 +30,4 @@ def test_short_window_on_the_card(card, trace):
         assert result["breakdown"]["device_ops"] and roofline in result["metrics"]
         assert result["metrics"][roofline]["value"] <= 100
     else:
-        assert set(result["metrics"]) == {f"stack_evals_per_s.{CELL}", "setup_s"}
+        assert set(result["metrics"]) == {"stack_evals_per_s", "setup_s"}

@@ -85,11 +85,24 @@ def test_metrics():
         assert m["moves"] in e2e and _line(m["layer"])
         assert set(m["workloads"]) <= cells
         assert callable(bench_run.reader(m["name"]))
-        if m["name"].endswith("_roofline") or "mfu" in m["name"]:
-            assert m["unit"] == "%"
+    shares = [m for m in BENCH["per_layer"] if bench_run.quantity(m["name"]).endswith("_roofline") or "mfu" in m["name"]]
+    assert shares and all(m["unit"] == "%" for m in shares)  # split names read by their quantity
     reports = {m["name"]: set(m.get("workloads", cells)) for m in BENCH["end_to_end"]}
     for m in BENCH["per_layer"]:
         assert set(m.get("workloads", cells)) <= reports[m["moves"]]  # each cell reports what it moves
     for w in cells:
         assert any(w in m.get("workloads", cells) for m in BENCH["per_layer"])
         assert w in reports["setup_s"] and sum(w in r for r in reports.values()) >= 2
+
+
+def test_throughput_is_one_metric_that_every_cell_reports():
+    """``stack_evals_per_s`` lists no cells, as ``setup_s`` does, so a cell
+    added later reports it with no end-to-end entry of its own."""
+    throughput = [m for m in BENCH["end_to_end"] if m["name"] == "stack_evals_per_s"]
+    assert len(throughput) == 1 and "workloads" not in throughput[0]
+
+
+@pytest.mark.parametrize("cell", [w["name"] for w in BENCH["workloads"]])
+def test_each_cell_reports_one_throughput(cell):
+    reported = [m["name"] for m in BENCH["end_to_end"] if cell in m.get("workloads", [cell])]
+    assert [n for n in reported if bench_run.quantity(n) == "stack_evals_per_s"] == ["stack_evals_per_s"]

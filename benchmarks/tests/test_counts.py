@@ -7,10 +7,10 @@ from types import SimpleNamespace
 
 import numpy as np
 import pytest
-import torch
 
 from benchmarks import generator
 from benchmarks import run as bench_run
+from benchmarks.tests.conftest import StandIn
 
 GRID = {"name": "EclipticCenteredSearch", "velocities": [1.0, 4.0, 3], "angles": [-0.5, 0.5, 2],
         "angle_units": "radian", "given_ecliptic": 0.3}
@@ -63,48 +63,13 @@ def test_build_work_by_hand():
     assert build_roofline.work(traffic, {"encode_num_bytes": -1})[1] == 3 * 30 * 16
 
 
-class _StandIn:
-    """A loop that does no work: its window takes 2 s for 3 stacks."""
-
-    def __init__(self, failed=0, numbers=None):
-        self.device = torch.device("cpu")
-        self.records, self.failed, self.evals = [], failed, 1000
-        self.settings, self.traffic = {}, {"limits": {"gap": 1.0}}
-        self._numbers = numbers or {"gap": 0.5}
-
-    def setup(self):
-        pass
-
-    def window(self, seconds):
-        self.records = [{} for _ in range(3)]
-        return 2.0, 3 + self.failed
-
-    def end_to_end(self, window_s):
-        return {"stack_evals_per_s": self.evals * len(self.records) / window_s}
-
-    def stack_summary(self):
-        return {}
-
-    def memory_peak(self):
-        return 0
-
-    def release(self):
-        pass
-
-    def reference_stacks(self):
-        return None
-
-    def numbers(self, refs):
-        return self._numbers
-
-
 BENCH = json.loads((bench_run.ROOT / "BENCHMARK.json").read_text())
 CELL = {"name": "regression_float.regression"}
-E2E = "stack_evals_per_s.regression_float.regression"
+E2E = "stack_evals_per_s"
 
 
 def test_window_arithmetic():
-    result = bench_run.measure(_StandIn(), BENCH, CELL, 2.0, False)
+    result = bench_run.measure(StandIn(), BENCH, CELL, 2.0, False)
     m = result["metrics"]
     assert set(m) == {E2E, "setup_s"}
     assert m[E2E]["value"] == 1000 * 3 / 2.0 and m[E2E]["unit"] == "evals/s"
@@ -115,8 +80,8 @@ def test_window_arithmetic():
 
 @pytest.mark.parametrize("case", ["a stack failed", "a number past its limit", "a number without a limit"])
 def test_window_that_is_not_correct(case):
-    run = {"a stack failed": _StandIn(failed=1), "a number past its limit": _StandIn(numbers={"gap": 1.5}),
-           "a number without a limit": _StandIn(numbers={"gap": 0.5, "other": 0.0})}[case]
+    run = {"a stack failed": StandIn(failed=1), "a number past its limit": StandIn(numbers={"gap": 1.5}),
+           "a number without a limit": StandIn(numbers={"gap": 0.5, "other": 0.0})}[case]
     result = bench_run.measure(run, BENCH, CELL, 2.0, False)
     assert result["correct"] is False
 

@@ -1,11 +1,12 @@
 """A later change adds a cell, a configuration and a per-layer metric as
-new files and new BENCHMARK.json entries, editing no file that is there:
-shown on a temporary copy."""
+new files and new BENCHMARK.json entries, editing no file that is there
+and adding no end-to-end metric: shown on a temporary copy."""
 
 import json
 import shutil
 
 from benchmarks import run as bench_run
+from benchmarks.tests.conftest import StandIn
 
 
 def test_add_a_cell_a_configuration_and_a_metric(tmp_path):
@@ -29,21 +30,23 @@ def test_add_a_cell_a_configuration_and_a_metric(tmp_path):
                              "file": "benchmarks/configs/survey_float.json", "why": "float planes on the band"})
     bench["workloads"].append({"name": "survey_float.band256", "config": "survey_float", "traffic": "band256",
                                "chips": 1, "why": "the band searched as float planes"})
-    bench["end_to_end"].append({"name": "stack_evals_per_s.survey_float.band256", "unit": "evals/s",
-                                "better": "higher", "bound": 0.05, "source": "host_clock",
-                                "workloads": ["survey_float.band256"]})
     # A new reader, and a quantity split by cell that reads through its quantity's file.
     for name, unit in (("stacks_per_window", "stacks"), ("build_s.survey_float.band256", "s")):
         bench["per_layer"].append({"name": name, "unit": unit, "better": "lower", "source": "host_clock",
-                                   "layer": "pipeline", "moves": "stack_evals_per_s.survey_float.band256",
+                                   "layer": "pipeline", "moves": "stack_evals_per_s",
                                    "workloads": ["survey_float.band256"]})
     (root / "BENCHMARK.json").write_text(json.dumps(bench))
 
     after = {p: p.read_bytes() for p in before}
     assert after == before  # no file that was there changed
+    written, original = (json.loads((r / "BENCHMARK.json").read_text()) for r in (root, bench_run.ROOT))
+    assert written["end_to_end"] == original["end_to_end"]  # no end-to-end metric added
     _, cell, config, traffic = bench_run.load_cell("survey_float.band256", root=root)
     assert config["search"]["encode_num_bytes"] == -1 and traffic["grid"]["velocities"][2] == 65
     assert bench_run.loop_class(traffic).__name__ == "StackSearchCell"
     ctx = type("Ctx", (), {"records": [{"timings": {"psi_phi_ms": 500.0}}] * 3})()
     got = bench_run.per_layer_metrics(bench, "survey_float.band256", ctx, root=root)
     assert got == {"stacks_per_window": {"value": 3, "unit": "stacks"}, "build_s.survey_float.band256": {"value": 0.5, "unit": "s"}}
+    # The new cell reports the throughput and the set-up time with no end-to-end entry of its own.
+    result = bench_run.measure(StandIn(), bench, cell, 2.0, False)
+    assert set(result["metrics"]) == {"stack_evals_per_s", "setup_s"} and result["correct"]
