@@ -1,130 +1,20 @@
 """Faults planted in the program underneath a run, for the check that
-``correct`` comes out false: the tests plant ``FAULTS`` at a tiny size, and
+``correct`` comes out false. Each cell's loop module
+(``benchmarks/loops/<loop>.py``) holds its own: ``FAULTS``, which its tests
+plant at a tiny size, and ``CELL_SIZE_FAULTS``, seen only at the cell's own
+size (either may be empty but ``FAULTS``).
 
     python3 -m benchmarks.faults --workload <name> --seeds <n> [<n> ...] [--faults <name> ...]
 
-reads every fault's numbers at the cell's own size on the card, one JSON
-line a fault and seed: the upper readings of the numbers that the control
-leaves at 0. Each fault takes an object with ``setattr(target, name,
-value)``, as pytest's monkeypatch fixture is.
+reads every fault's numbers of the cell's loop at the cell's own size on the
+card, one JSON line a fault and seed: the upper readings of the numbers
+that the control leaves at 0. Each fault takes an object with
+``setattr(target, name, value)``, as pytest's monkeypatch fixture is.
 """
 
 import argparse
 import json
 import sys
-
-import numpy as np
-
-
-def _half_the_candidates(monkeypatch):
-    """The search scores every other candidate only."""
-    from kbmod_tpu_torch.search import StackSearch, TrajectoryList
-
-    search_all = StackSearch.search_all
-
-    def faulty(self, search_list, on_gpu=True):
-        arrays = {k: v[::2] for k, v in search_list.get_arrays().items()}
-        return search_all(self, TrajectoryList(arrays), on_gpu)
-
-    monkeypatch.setattr(StackSearch, "search_all", faulty)
-
-
-def _half_the_exposures(monkeypatch):
-    """The build leaves the science of the second half of each batch of
-    exposures out (psi 0 there)."""
-    from kbmod_tpu_torch.ops import psi_phi
-
-    build = psi_phi._psi_phi_from_sci_var
-
-    def faulty(sci, var, psf):
-        psi, phi = build(sci, var, psf)
-        psi[sci.shape[0] // 2:] = 0.0
-        return psi, phi
-
-    monkeypatch.setattr(psi_phi, "_psi_phi_from_sci_var", faulty)
-
-
-def _search_answer_altered(monkeypatch):
-    """Each listed row's likelihood is altered by 5% where the search
-    produces it."""
-    from kbmod_tpu_torch.ops import search
-
-    core = search.core_search
-
-    def faulty(*args, **kwargs):
-        out = core(*args, **kwargs)
-        out["lh"] = np.where(out["lh"] > -1e30, out["lh"] * np.float32(1.05), out["lh"])
-        return out
-
-    monkeypatch.setattr(search, "core_search", faulty)
-
-
-def _final_answer_altered(monkeypatch):
-    """Each final row's flux is altered by 5% where the results path
-    produces it."""
-    from kbmod_tpu_torch.run_search import SearchRunner
-
-    load = SearchRunner.load_and_filter_results
-
-    def faulty(self, *args, **kwargs):
-        keep = load(self, *args, **kwargs)
-        if len(keep):
-            keep.table["flux"] = np.asarray(keep.table["flux"]) * 1.05
-        return keep
-
-    monkeypatch.setattr(SearchRunner, "load_and_filter_results", faulty)
-
-
-def _coadds_left_unchanged(monkeypatch):
-    """The coadd step returns the table with its stamps never filled."""
-    from kbmod_tpu_torch import run_search
-
-    def faulty(keep, stack, coadd_types, radius, **kwargs):
-        for kind in coadd_types:
-            keep.table[f"coadd_{kind}"] = np.zeros((len(keep), 2 * radius + 1, 2 * radius + 1), np.float32)
-
-    monkeypatch.setattr(run_search, "append_coadds", faulty)
-
-
-def _clustering_left_out(monkeypatch):
-    """The clustering step returns the rows unchanged."""
-    from kbmod_tpu_torch import run_search
-
-    monkeypatch.setattr(run_search, "apply_clustering", lambda keep, params: None)
-
-
-def _half_the_final_rows_left_out(monkeypatch):
-    """Every other row the clustering kept is dropped."""
-    from kbmod_tpu_torch import run_search
-
-    cluster = run_search.apply_clustering
-
-    def faulty(keep, params):
-        cluster(keep, params)
-        keep.filter_rows(np.arange(0, len(keep), 2), "fault")
-
-    monkeypatch.setattr(run_search, "apply_clustering", faulty)
-
-
-def _sigma_g_left_out(monkeypatch):
-    """The results path's sigma-G clipping returns the rows unclipped."""
-    from kbmod_tpu_torch import run_search
-
-    monkeypatch.setattr(run_search, "apply_clipped_sigma_g", lambda clipper, results: None)
-
-
-FAULTS = {
-    "clustering left out": _clustering_left_out,
-    "half the final rows left out": _half_the_final_rows_left_out,
-    "half the candidates": _half_the_candidates,
-    "half the exposures": _half_the_exposures,
-    "a listed likelihood altered": _search_answer_altered,
-    "a final flux altered": _final_answer_altered,
-    "coadds left unchanged": _coadds_left_unchanged,
-}
-# Seen only where the results path's sigma-G removes samples, as it does at
-# the cells' own size (not at the tests' few exposures).
-CELL_SIZE_FAULTS = {"sigma-G left out": _sigma_g_left_out}
 
 
 class Patcher:
@@ -144,7 +34,7 @@ class Patcher:
 
 
 def main(argv=None):
-    from benchmarks.run import loop_class, load_cell
+    from benchmarks.run import load_cell, loop_module
 
     ap = argparse.ArgumentParser(description="The program's numbers with each planted fault, seed by seed.")
     ap.add_argument("--workload", required=True)
@@ -152,13 +42,14 @@ def main(argv=None):
     ap.add_argument("--faults", nargs="*", help="the faults to plant, by name (default: all)")
     args = ap.parse_args(argv)
     _, cell, config, traffic = load_cell(args.workload)
-    for fault, plant in dict(FAULTS, **CELL_SIZE_FAULTS).items():
+    loop = loop_module(traffic)
+    for fault, plant in dict(loop.FAULTS, **loop.CELL_SIZE_FAULTS).items():
         if args.faults and fault not in args.faults:
             continue
         for seed in args.seeds:
             patcher = Patcher()
             plant(patcher)
-            run = loop_class(traffic)(cell, config, traffic, seed, "cuda")
+            run = loop.Cell(cell, config, traffic, seed, "cuda")
             try:
                 run.setup(warm=False)
                 run.window(0)

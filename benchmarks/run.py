@@ -5,7 +5,8 @@
 The cell is found by name in ``BENCHMARK.json``; its configuration file
 (``benchmarks/configs/<config>.json``) and traffic file
 (``benchmarks/traffic/<config>.<traffic>.json``) are found by their names,
-the traffic file names the loop (``benchmarks/loops/<loop>.py``) and
+the traffic file names the loop (``benchmarks/loops/<loop>.py``, which
+declares its compared numbers, its control and its faults) and
 each per-layer metric has its reader (``benchmarks/metrics/<name>.py``, or
 that of its name up to the first dot, for a quantity split by cell).
 With ``--trace 0`` the result carries the cell's end-to-end metrics, with
@@ -65,8 +66,15 @@ def load_cell(name, root=ROOT):
     return bench, cell, config, traffic
 
 
+def loop_module(traffic):
+    """The module of the traffic file's ``loop``, ``benchmarks/loops/<loop>.py``:
+    its ``Cell``, the ``NUMBERS`` it compares, its ``control_readings`` and
+    its ``FAULTS`` and ``CELL_SIZE_FAULTS``."""
+    return importlib.import_module(f"benchmarks.loops.{traffic['loop']}")
+
+
 def loop_class(traffic):
-    return importlib.import_module(f"benchmarks.loops.{traffic['loop']}").Cell
+    return loop_module(traffic).Cell
 
 
 def quantity(metric_name):

@@ -46,10 +46,8 @@ def tiny_cell(name):
 
 
 def tiny_run(name, seed=2**31 + 11, traced=False):
-    from benchmarks.loops.stack_search import StackSearchCell
-
     bench, cell, config, traffic = tiny_cell(name)
-    return bench, cell, StackSearchCell(cell, config, traffic, seed, "cpu", traced=traced)
+    return bench, cell, bench_run.loop_class(traffic)(cell, config, traffic, seed, "cpu", traced=traced)
 
 
 class StandIn:

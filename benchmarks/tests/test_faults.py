@@ -6,7 +6,7 @@ import pytest
 import torch
 
 from benchmarks import run as bench_run
-from benchmarks.faults import FAULTS
+from benchmarks.loops.stack_search import FAULTS
 from benchmarks.tests.conftest import tiny_run
 
 CELLS = ["survey_u8.band256", "regression_float.regression"]
@@ -41,7 +41,7 @@ def test_the_patcher_puts_back_what_it_planted():
 
     before = run_search.apply_clustering
     patcher = faults.Patcher()
-    faults.FAULTS["clustering left out"](patcher)
+    FAULTS["clustering left out"](patcher)
     assert run_search.apply_clustering is not before
     patcher.undo()
     assert run_search.apply_clustering is before
