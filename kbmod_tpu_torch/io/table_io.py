@@ -7,15 +7,19 @@ JSON-serializable values) round-trips in all three formats.
 Multi-dimensional columns are flattened to (N, prod(shape)) for parquet and
 stored natively for hdf5/ecsv; Results restores shapes from the
 ``image_column_shapes`` metadata. The metadata keys are the JAX package's,
-so either package reads the other's files. ECSV needs only numpy and json;
-parquet (pyarrow) and hdf5 (h5py) import their library when used.
+so either package reads the other's files, and the ECSV writer writes the
+JAX package's bytes. ECSV needs only numpy and json (its float columns go
+through the native library where it builds); parquet (pyarrow) and hdf5
+(h5py) import their library when used.
 """
 
 import json
+import math
 from pathlib import Path
 
 import numpy as np
 
+from kbmod_tpu_torch import native, tracing
 from kbmod_tpu_torch.table import Table
 
 _META_KEY = b"kbmod_tpu_meta"
@@ -48,8 +52,7 @@ def _write_ecsv(table, filepath):
         if col.dtype == object:
             cols.append([json.dumps(_to_jsonable(v)) for v in col])
         elif col.ndim > 1:
-            flat = col.reshape(n, -1)
-            cols.append([json.dumps([_scalar(x) for x in row]) for row in flat])
+            cols.append(_json_rows(col.reshape(n, math.prod(col.shape[1:]))))
         else:
             cols.append([_scalar_str(v) for v in col])
     for i in range(n):
@@ -61,6 +64,20 @@ def _write_ecsv(table, filepath):
             row.append(cell)
         lines.append(",".join(row))
     filepath.write_text("\n".join(lines) + "\n")
+
+
+def _json_rows(flat):
+    """``json.dumps`` of each row of a 2-D numeric column as a list of
+    Python scalars: float columns through the native formatter where it
+    builds, every other column (and floats without it) through ``tolist``.
+    Either way the bytes are those of ``_scalar`` per element."""
+    if flat.dtype.kind == "f":
+        flat = flat.astype(np.float64, copy=False)
+        if native.available():
+            tracing.count("ecsv.values.native", flat.size)
+            return native.format_float_rows(flat)
+        tracing.count("ecsv.values.python", flat.size)
+    return [json.dumps(row) for row in flat.tolist()]
 
 
 def _scalar(x):

@@ -1,8 +1,9 @@
 """Native (C++) host-side helpers, loaded with ctypes.
 
 A copy of the JAX package's native/ helper: ``kbmod_native.cpp`` (grid
-dedup, stamp cutouts, the RICE_1 codec) is compiled on first use with
-``g++ -O3 -shared -fPIC -std=c++17`` into
+dedup, stamp cutouts, the RICE_1 codec, and, the port's own, the JSON text
+of float rows for the ECSV writer) is compiled on first use with
+``g++ -O3 -shared -fPIC -std=c++17 -pthread`` into
 ``kbmod_tpu_torch/_build/libkbmod_native-<hash>.so``, keyed by a hash of the
 source and the flags, as ``ops/_build.py`` keys the CUDA build; nothing is
 written beside the source. Where the library cannot be built (no compiler)
@@ -26,7 +27,7 @@ logger = logging.getLogger(__name__)
 
 _SRC = Path(__file__).resolve().parent / "kbmod_native.cpp"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
+CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
 _lock = threading.Lock()
 _lib = None
 _tried = False
@@ -102,6 +103,14 @@ def _load():
                 ctypes.c_int32,
                 ctypes.POINTER(ctypes.c_uint8),
                 ctypes.c_int64,
+            ]
+            lib.format_float_rows.restype = None
+            lib.format_float_rows.argtypes = [
+                ctypes.POINTER(ctypes.c_double),
+                ctypes.c_int64,
+                ctypes.c_int64,
+                ctypes.POINTER(ctypes.c_char),
+                ctypes.POINTER(ctypes.c_int64),
             ]
             _lib = lib
         except Exception as err:  # no compiler, or the build failed
@@ -209,3 +218,21 @@ def rice_encode(values, bytepix):
     if n < 0:
         raise ValueError("RICE encode buffer overflow (native encoder).")
     return out[:n].tobytes()
+
+
+def format_float_rows(values):
+    """Each row of the 2-D float array ``values`` as the text
+    ``json.dumps(row.tolist())`` gives, byte for byte, in a list; None when
+    the native library is unavailable."""
+    lib = _load()
+    if lib is None:
+        return None
+    vals = np.ascontiguousarray(values, dtype=np.float64)
+    n, m = vals.shape
+    # A value takes at most 24 characters and its separator 2.
+    out = np.empty(n * (26 * m + 2), dtype=np.uint8)
+    ends = np.empty(n, dtype=np.int64)
+    lib.format_float_rows(_ptr(vals, ctypes.c_double), n, m, _ptr(out, ctypes.c_char), _ptr(ends, ctypes.c_int64))
+    ends = ends.tolist()
+    text = str(out[: ends[-1] if n else 0].data, "ascii")
+    return [text[start:end] for start, end in zip([0, *ends], ends)]

@@ -9,13 +9,18 @@
 //     trajectories before they ever reach Python objects.
 //   * extract_stamps — NaN-padded stamp cutouts (the reference's numba
 //     kernels, src/kbmod/core/stamp_utils.py:403-474).
+//   * format_float_rows — the JSON text of float rows, as Python's
+//     json.dumps writes them, for the ECSV results file (io/table_io.py).
 //
 // Exposed with a plain C ABI for ctypes (no pybind11 dependency).
 
 #include <algorithm>
+#include <charconv>
 #include <cmath>
 #include <cstdint>
 #include <cstring>
+#include <system_error>
+#include <thread>
 #include <unordered_map>
 #include <vector>
 
@@ -296,6 +301,124 @@ int64_t rice_encode(const int32_t* vals, int64_t npix, int32_t bytepix,
     }
     wr.flush();
     return wr.overflow ? -1 : wr.pos;
+}
+
+// One finite or non-finite double as Python's json.dumps writes it:
+// float.__repr__ (shortest round-trip digits; positional when the decimal
+// exponent lies in [-4, 16), else d.ddde+XX with at least two exponent
+// digits; ".0" on integral values) and NaN, Infinity, -Infinity. Writes at
+// most 24 characters and returns the end.
+static char* format_json_double(double v, char* p) {
+    if (std::isnan(v)) {
+        std::memcpy(p, "NaN", 3);
+        return p + 3;
+    }
+    if (std::isinf(v)) {
+        if (v < 0) *p++ = '-';
+        std::memcpy(p, "Infinity", 8);
+        return p + 8;
+    }
+    // Shortest digits in scientific form: [-]d[.ddd]e(+|-)XX[X].
+    char sci[32];
+    char* end = std::to_chars(sci, sci + sizeof(sci), v, std::chars_format::scientific).ptr;
+    const char* s = sci;
+    if (*s == '-') *p++ = *s++;
+    char digits[20];
+    int nd = 0;
+    while (*s != 'e') {
+        if (*s != '.') digits[nd++] = *s;
+        ++s;
+    }
+    ++s;  // 'e'
+    const bool neg_exp = (*s == '-');
+    ++s;
+    int exp10 = 0;
+    while (s < end) exp10 = exp10 * 10 + (*s++ - '0');
+    if (neg_exp) exp10 = -exp10;
+    // Python's decpt: the value is 0.d1d2... x 10^decpt.
+    const int decpt = exp10 + 1;
+    if (decpt <= -4 || decpt > 16) {
+        *p++ = digits[0];
+        if (nd > 1) {
+            *p++ = '.';
+            std::memcpy(p, digits + 1, nd - 1);
+            p += nd - 1;
+        }
+        *p++ = 'e';
+        *p++ = exp10 < 0 ? '-' : '+';
+        const int a = exp10 < 0 ? -exp10 : exp10;
+        if (a >= 100) *p++ = static_cast<char>('0' + a / 100);
+        *p++ = static_cast<char>('0' + (a / 10) % 10);
+        *p++ = static_cast<char>('0' + a % 10);
+    } else if (decpt <= 0) {
+        *p++ = '0';
+        *p++ = '.';
+        for (int i = decpt; i < 0; ++i) *p++ = '0';
+        std::memcpy(p, digits, nd);
+        p += nd;
+    } else {
+        for (int i = 0; i < decpt; ++i) *p++ = i < nd ? digits[i] : '0';
+        *p++ = '.';
+        if (nd > decpt) {
+            std::memcpy(p, digits + decpt, nd - decpt);
+            p += nd - decpt;
+        } else {
+            *p++ = '0';
+        }
+    }
+    return p;
+}
+
+static char* format_json_row(const double* row, int64_t m, char* p) {
+    *p++ = '[';
+    for (int64_t j = 0; j < m; ++j) {
+        if (j) {
+            *p++ = ',';
+            *p++ = ' ';
+        }
+        p = format_json_double(row[j], p);
+    }
+    *p++ = ']';
+    return p;
+}
+
+// Write each row of the C-contiguous (n, m) array vals as the text
+// json.dumps(row.tolist()) gives ("[a, b, c]"), one after another into out,
+// and the end offset of row i into row_end[i]. out holds at least
+// n * (26 * m + 2) bytes, which any values fit. Blocks of rows go to up to
+// 8 threads, each block written where its rows would start at the most
+// they could take, then moved together.
+void format_float_rows(const double* vals, int64_t n, int64_t m, char* out, int64_t* row_end) {
+    if (n == 0) return;
+    const int64_t slot = 26 * m + 2;
+    const int64_t hw = std::max<int64_t>(1, std::thread::hardware_concurrency());
+    const int64_t blocks = std::max<int64_t>(1, std::min({hw, int64_t{8}, n, n * m / (int64_t{1} << 14)}));
+    const int64_t per = (n + blocks - 1) / blocks;
+    auto block = [&](int64_t lo) {
+        char* p = out + lo * slot;
+        for (int64_t i = lo; i < std::min(n, lo + per); ++i) {
+            p = format_json_row(vals + i * m, m, p);
+            row_end[i] = p - out;
+        }
+    };
+    std::vector<std::thread> pool;
+    for (int64_t lo = per; lo < n; lo += per) {
+        try {
+            pool.emplace_back(block, lo);
+        } catch (const std::system_error&) {  // no thread to be had: this one
+            block(lo);
+        }
+    }
+    block(0);
+    for (auto& t : pool) t.join();
+    int64_t end = row_end[std::min(n, per) - 1];
+    for (int64_t lo = per; lo < n; lo += per) {
+        const int64_t hi = std::min(n, lo + per);
+        const int64_t shift = lo * slot - end;
+        std::memmove(out + end, out + lo * slot, row_end[hi - 1] - lo * slot);
+        for (int64_t i = lo; i < hi; ++i) row_end[i] -= shift;
+        end = row_end[hi - 1];
+    }
 }
 
 }  // extern "C"
