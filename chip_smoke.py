@@ -48,7 +48,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 8. ``KB_SIGMAG_MODE=exact`` on a 64-row float band over every candidate
    (K7, no other kernel and no twin): its time and rows per second,
    every kept slot's clipped lh against the host's re-score of the same
-   curves, the object best;
+   curves, the object best, the memory peak within ``search_memory_budget``;
 9. stamp vetting: P3, the float pipeline with ``cnn_filter`` on a resnet18
    state_dict drawn from ``torch.Generator(0)`` into a temporary directory
    (K1, K2, no twin; the ``cnn filtering`` phase's time); the brightness
@@ -1128,9 +1128,14 @@ def exact_path(search, obj, cands, card, rows=64):
     over every candidate: K7 on the card (the reference runs it in XLA), no
     other kernel and no twin. The object must be the best result;
     every kept slot's clipped lh must equal the host ``clipped_sigmag_scores``
-    of the same curves within twice the Queue 3 float64 bound. Returns its
-    launches."""
+    of the same curves within twice the Queue 3 float64 bound; the memory
+    peak over ``search_all`` must stay inside ``search_memory_budget`` of the
+    same search. Returns its launches."""
+    from types import SimpleNamespace
+
+    from kbmod_tpu_torch.configuration import SearchConfiguration
     from kbmod_tpu_torch.ops import search as ops
+    from kbmod_tpu_torch.run_search import search_memory_budget
 
     T, H, W = search.num_images, search.height, search.width
     y0 = obj.y - rows // 2
@@ -1151,12 +1156,24 @@ def exact_path(search, obj, cands, card, rows=64):
         return out
 
     ops.search_topk_sigmag_exact = timed
+    config = SearchConfiguration(dict(results_per_pixel=8, gpu_filter=True, y_pixel_bounds=[y0, y0 + rows]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     try:
         with switched(KB_SIGMAG_MODE="exact"):
             _, launches, wall = drive(f"exact sigma-G, float band y=[{y0}, {y0 + rows}), {len(cands)} candidates",
                                       ("sigmag_exact_topk",), lambda: search.search_all(cands, True))
+            budget = search_memory_budget(config, SimpleNamespace(num_times=T, height=H, width=W), len(cands),
+                                          torch.device("cuda"))
     finally:
         ops.search_topk_sigmag_exact = exact
+    peak = torch.cuda.max_memory_allocated() - base
+    log(f"exact sigma-G band memory over search_all: budget {budget['total']} bytes "
+        f"({ {k: v for k, v in budget.items() if k != 'total'} }), measured peak {peak} bytes above the {base} "
+        f"allocated before; {card}")
+    if budget["total"] < peak:
+        raise AssertionError(f"exact sigma-G band: peak {peak} above the budget {budget}")
     if launches["sigmag_exact_topk"] != 1 or sum(launches.values()) != 1:
         raise AssertionError(f"exact sigma-G: not one K7 launch alone: {launches}")
     best = search.get_results(0, 1)[0]
@@ -2625,7 +2642,7 @@ def survey_path(card, dev):
     launches of the driven calls."""
     import tempfile
 
-    from kbmod_tpu_torch.ops.search import sigmag_pool_factor
+    from kbmod_tpu_torch.ops.search import search_depth
     from kbmod_tpu_torch.scripts import regression, survey_pipeline_gate, survey_scale
     from kbmod_tpu_torch.scripts._common import phase_walls
 
@@ -2648,7 +2665,7 @@ def survey_path(card, dev):
         launches, twin_calls = read_counts()
         missing = regression.check(loaded, stack, times)
     walls = ", ".join(f"{k} {v:.2f}" for k, v in phase_walls(runner).items())
-    log(f"survey regression (20x1024x512, 26 x 52 grid, sigma-G pool x{sigmag_pool_factor()}): "
+    log(f"survey regression (20x1024x512, 26 x 52 grid, sigma-G pool K'={search_depth(True, 8, 26 * 52)[1]}): "
         f"{len(results)} rows in {wall:.2f} s, {len(regression.TRJS) - len(missing)} of {len(regression.TRJS)} "
         f"recovered; launches {launches}, twin calls {twin_calls}; phase walls (s): {walls}; {card}")
     if missing:

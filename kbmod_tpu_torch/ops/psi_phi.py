@@ -62,18 +62,41 @@ def _conv_batch_budget(device):
     return 2 * 2**30
 
 
+def _conv_batch(device, h, w):
+    """Images of one build dispatch: four float planes an image within :func:`_conv_batch_budget`."""
+    return max(1, int(_conv_batch_budget(device) // (4 * h * w * 4)))
+
+
 def _psf_conv_groups(sci, psfs, device):
-    """Group image indices by identical PSF kernel, with a batch size that
-    bounds one dispatch's footprint (sci/var in and psi/phi out: four float
-    planes per image) to :func:`_conv_batch_budget`.
-    Returns (groups: {key: [indices]}, kernels, batch)."""
+    """Group image indices by identical PSF kernel, with a batch size of
+    :func:`_conv_batch`. Returns (groups: {key: [indices]}, kernels, batch)."""
     kernels = [np.asanyarray(getattr(p, "kernel", p), dtype=np.float32) for p in psfs]
     groups = {}
     for i, k in enumerate(kernels):
         groups.setdefault((k.shape, k.tobytes()), []).append(i)
-    h, w = np.asanyarray(sci[0]).shape
-    batch = max(1, int(_conv_batch_budget(device) // (4 * h * w * 4)))
-    return groups, kernels, batch
+    return groups, kernels, _conv_batch(device, *np.asanyarray(sci[0]).shape)
+
+
+def planes_bytes(num_bytes, T, H, W):
+    """Device bytes of a PsiPhiArray's planes: float psi, phi and validity (9 bytes a
+    pixel and time), or uint8/uint16 code pairs (2 or 4 a pixel of the padded width)."""
+    if num_bytes in (1, 2):
+        return 2 * num_bytes * T * H * padded_width(W)
+    return 9 * T * H * W
+
+
+def build_bytes(num_bytes, T, H, W, device):
+    """Device bytes a build holds beside the kept planes: K1's inputs and
+    outputs for a batch of images (16 bytes a pixel, 48 with the encode's
+    temporaries), twice where there are several batches (the next arrives
+    while the last is held), and the float path's unpacked planes and masks
+    (:func:`fill_psi_phi_array`)."""
+    hw = H * W
+    batch = min(T, _conv_batch(device, H, W))
+    live = batch * (2 if batch < T else 1)
+    if num_bytes in (1, 2):
+        return 48 * live * hw
+    return max(8 * T * hw + 16 * live * hw, 11 * T * hw)
 
 
 def generate_all_psi_phi_images(sci, var, psfs, device=None):
@@ -308,7 +331,7 @@ def fill_psi_phi_array_streaming(result, num_bytes, sci, var, psfs, zeroed_times
 
     # Pass 2: encode each chunk and write its planes into the code pairs.
     dtype = _CODE_DTYPES[num_bytes]
-    pairs = _zero_codes((num_times, height, _padded_width(width), 2), dtype, dev)
+    pairs = _zero_codes((num_times, height, padded_width(width), 2), dtype, dev)
     for k, chunk, sci_b, var_b in chunks():
         with tracing.span("build.conv"):
             psi_b, phi_b = _psi_phi_from_sci_var(sci_b, var_b, k)
@@ -518,7 +541,7 @@ class PsiPhiArray:
         return PsiPhi(float(self.psi[time, row, col]), float(self.phi[time, row, col]))
 
 
-def _padded_width(width):
+def padded_width(width):
     return -(-width // 8) * 8
 
 
@@ -527,7 +550,7 @@ def interleave_code_pairs(psi_codes, phi_codes):
     the same type holding (psi, phi) side by side, Wp = W rounded up to 8,
     the extra columns zero. Built one time plane at a time."""
     T, H, W = psi_codes.shape
-    pairs = _zero_codes((T, H, _padded_width(W), 2), psi_codes.dtype, psi_codes.device)
+    pairs = _zero_codes((T, H, padded_width(W), 2), psi_codes.dtype, psi_codes.device)
     for t in range(T):
         _storage(pairs)[t, :, :W, 0] = _storage(psi_codes)[t]
         _storage(pairs)[t, :, :W, 1] = _storage(phi_codes)[t]

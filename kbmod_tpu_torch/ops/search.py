@@ -37,9 +37,6 @@ from kbmod_tpu_torch.ops.sigmag_exact_kernel import k7_route, sigmag_exact_topk
 logger = logging.getLogger("kbmod.search")
 
 FLT_MAX = float(np.finfo(np.float32).max)
-# Default over-provisioning of the sigma-G pool: search the top
-# SIGMAG_POOL_FACTOR * K by unclipped lh, then re-rank by clipped lh.
-SIGMAG_POOL_FACTOR = 4
 # Rows per winner re-scoring gather.
 EVAL_CHUNK = 524288
 # The exact sigma-G search: start-pixel rows a tile, and the (candidate,
@@ -53,10 +50,19 @@ EXACT_CHUNK_SAMPLES = 1 << 25
 EXACT_BYTES_PER_SAMPLE = 96
 
 
-def sigmag_pool_factor():
-    """The sigma-G pool's over-provisioning factor: ``KB_SIGMAG_TOPK_FACTOR``
-    when set, else SIGMAG_POOL_FACTOR."""
-    return int(os.environ.get("KB_SIGMAG_TOPK_FACTOR", str(SIGMAG_POOL_FACTOR)))
+def search_depth(do_sigmag, k, num_cand):
+    """(sigma-G mode, K', refine) of a search of K results a pixel over
+    ``num_cand`` candidates, for :func:`core_search` and the memory budget:
+    "" or ``KB_SIGMAG_MODE``; the maps' depth, under the sigma-G pool
+    ``KB_SIGMAG_TOPK_FACTOR`` (4) times K cut to the candidates (at least K);
+    whether the pool is refined (:func:`exact_refine_pixels`): unless
+    ``KB_SIGMAG_AUTO=0`` or it holds every candidate (then it is exact)."""
+    k, num_cand = int(k), int(num_cand)
+    mode = os.environ.get("KB_SIGMAG_MODE", "overprovision") if do_sigmag else ""
+    over = int(os.environ.get("KB_SIGMAG_TOPK_FACTOR", "4"))
+    pool = bool(do_sigmag) and mode != "exact"
+    refine = pool and over * k < num_cand and os.environ.get("KB_SIGMAG_AUTO", "1") != "0"
+    return mode, max(min(num_cand, over * k if pool else k), k), refine
 
 
 # ----------------------------------------------------------------------
@@ -208,6 +214,12 @@ def _gather_curves(psi, phi, valid, xs, ys, dxs, dys):
     psi_v = torch.where(ok, psi.reshape(-1)[flat_idx], zero)
     phi_v = torch.where(ok, phi.reshape(-1)[flat_idx], zero)
     return psi_v, phi_v, ok
+
+
+def gathers_bytes(rows, T, chunk=EVAL_CHUNK):
+    """Device bytes of gathering ``rows`` curves of T samples ``chunk`` rows at a time
+    (:func:`_gather_curves`: int64 pixels and indices, masks, values: 96 bytes a sample)."""
+    return 96 * min(chunk, rows) * T
 
 
 def _gather_curves_idx(psi, phi, valid, xs, ys, cidx, dxs_tab, dys_tab, gather=_gather_curves):
@@ -566,6 +578,22 @@ def search_topk_sigmag_exact(
     return out_lh, out_idx
 
 
+def exact_bytes(device_type, quantized, C, T, H, W, k_search, rows, SW):
+    """Device bytes the exact search of C candidates over rows x SW start
+    pixels holds beside its maps: a quantized stack's decoded planes
+    (:func:`exact_inputs`, 9 bytes a pixel and time), then on a card
+    (``k7_route``) K7's (C, T) offset pairs, percentile table and counter;
+    on the CPU the twin's candidate chunk's curves over a row tile
+    (EXACT_BYTES_PER_SAMPLE a sample) and the tile's lists and sort (24
+    bytes a slot)."""
+    decoded = 9 * T * H * W if quantized else 0
+    if k7_route(device_type) == "kernel":
+        return decoded + 8 * C * T + 12 * (T + 1) + 8
+    tile = min(EXACT_ROW_TILE, rows) * SW
+    chunk = min(max(1, EXACT_CHUNK_SAMPLES // (tile * T)), C)
+    return decoded + EXACT_BYTES_PER_SAMPLE * chunk * tile * T + 24 * (k_search + chunk) * tile
+
+
 def sigmag_filtered_indices(values, sgl0, sgl1, sigmag_coeff, width):
     """The kept original indices after sigma-G filtering one value array
     (kernel_helpers.cpp:86-106)."""
@@ -632,6 +660,12 @@ def _fetch_topk(top_lh, top_idx):
     return lh_np.reshape(shape), idx_np.reshape(shape)
 
 
+def maps_bytes(k_search, rows, SW):
+    """Device bytes of (K', rows, SW) top-K maps (8 bytes a slot) and their compaction
+    on a card in :func:`_fetch_topk` (17: the mask, the int64 positions, the values)."""
+    return (8 + 17) * k_search * rows * SW
+
+
 def exact_inputs(psi, phi, valid, bounds):
     """The exact sigma-G search's planes, whole (decoded for a quantized
     stack, as the reference does), and its window and K out of a search's
@@ -684,14 +718,12 @@ def core_search(
     out pixel-major with K entries per pixel (kernels.cu:286), empty slots
     carrying lh = -FLT_MAX.
 
-    With ``do_sigmag`` the search keeps the top ``KB_SIGMAG_TOPK_FACTOR``
-    (default 4) x K per pixel by UNCLIPPED lh and re-ranks that pool by the
-    reference's clipped lh; pixels whose kept membership the re-rank
-    changed are re-scored against every candidate
-    (:func:`exact_refine_pixels`) unless ``KB_SIGMAG_AUTO=0``. With
-    ``KB_SIGMAG_MODE=exact`` every candidate is scored by its clipped lh
-    (:func:`search_topk_sigmag_exact`, on decoded planes for a quantized
-    stack). ``timings`` (a dict) receives the stage times "search_ms" and
+    With ``do_sigmag`` the search keeps a pool of K' a pixel by UNCLIPPED
+    lh (:func:`search_depth`), re-ranks it by the reference's clipped lh and
+    may re-score the pixels whose kept membership changed against every
+    candidate; in the exact mode every candidate is scored by its clipped
+    lh (:func:`search_topk_sigmag_exact`, on a quantized stack's decoded
+    planes). ``timings`` (a dict) receives the stage times "search_ms" and
     "assemble_ms" of the spans ``search.topk`` (the offsets, the plans and
     the top-K maps) and ``search.assemble`` (everything after), each ended
     by a synchronize on a card. ``topk_fn`` (with :func:`_local_topk`'s signature) and
@@ -702,21 +734,16 @@ def core_search(
     dev = psi.device
     sync = dev if timings is not None else None
     SH, SW = y_max - y_min, x_max - x_min
-    num_cand = len(vxs)
     k = int(results_per_pixel)
     if gate_min_lh is None:
         gate_min_lh = bool(do_sigmag)
-    sigmag_mode = os.environ.get("KB_SIGMAG_MODE", "overprovision") if do_sigmag else ""
-    over = sigmag_pool_factor()
-    k_search = min(num_cand, over * k if (do_sigmag and sigmag_mode != "exact") else k)
-    k_search = max(k_search, k)
+    sigmag_mode, k_search, refine = search_depth(do_sigmag, k, len(vxs))
     topk_fn = topk_fn or _local_topk
     gather = gather or _gather_curves
 
     with tracing.span("search.topk", into=timings, key="search_ms", sync=sync):
         with tracing.span("search.offsets"):
             dxs, dys = trajectory_offsets(vxs, vys, times)
-        escalate = _SigmaGEscalation(do_sigmag, sigmag_mode, over, k, num_cand)
         has_masked = not isinstance(psi, EncodedPlanes) and sigmag_mode != "exact" and bool(torch.min(valid) == 0)
         top_lh, top_idx = topk_fn(
             psi, phi, valid, dxs, dys, sigmag_mode=sigmag_mode, min_obs=min_obs, min_lh=min_lh, sgl_L=sgl_L,
@@ -728,18 +755,18 @@ def core_search(
         dxs_t = torch.as_tensor(dxs, device=dev)
         dys_t = torch.as_tensor(dys, device=dev)
         refine_fn = None
-        if escalate.enabled:
+        if refine:
             refine_fn = partial(
                 exact_refine_pixels, psi=psi, phi=phi, valid=valid, times=times,
                 vxs=vxs, vys=vys, k=k, min_obs=min_obs, min_lh=min_lh,
                 sgl_L=sgl_L, sgl_H=sgl_H, sigmag_coeff=sigmag_coeff, gather=gather,
             )
-        results, _ = assemble_core_results(
+        results = assemble_core_results(
             top_lh, top_idx, psi, phi, valid, times, vxs, vys,
             k=k, k_search=k_search, x_min=x_min, y_min=y_min, SH=SH, SW=SW,
             min_obs=min_obs, min_lh=min_lh, do_sigmag=do_sigmag,
             sgl_L=sgl_L, sgl_H=sgl_H, sigmag_coeff=sigmag_coeff,
-            warn_on_churn=not escalate.enabled, refine_fn=refine_fn,
+            warn_on_churn=not refine, refine_fn=refine_fn,
             compact_min_lh=compact_min_lh, offsets=(dxs_t, dys_t), gather=gather,
         )
     return results
@@ -761,9 +788,6 @@ def assemble_core_results(
     are the (dxs, dys) (C, T) offset tables on the planes' device.
     ``gather`` gathers the winners' curves (:func:`_gather_curves`, or the
     mesh-sharded drop-in of ``parallel.sharded.make_sharded_evaluators``).
-
-    Returns ``(results, pool_tail_frac)``, the second value being the
-    sigma-G pool-boundary churn diagnostic (0.0 when no re-rank ran).
     """
     with tracing.span("search.fetch"):
         top_lh, top_idx = _fetch_topk(top_lh, top_idx)  # (K', SH, SW) numpy
@@ -833,7 +857,6 @@ def assemble_core_results(
         "obs_count": obs,
     }
 
-    tail_frac = 0.0
     if do_sigmag and k_search > k:
         with tracing.span("search.rerank"):
             # Re-rank within each pixel by clipped lh and keep only K per pixel.
@@ -841,9 +864,7 @@ def assemble_core_results(
             lh_px = results["lh"].reshape(n_pix, k_search)
             order = np.argsort(-lh_px, axis=1, kind="stable")[:, :k]
             if warn_on_churn:
-                tail_frac = _warn_on_pool_tail_churn(order, lh_px, k, k_search)
-            else:
-                tail_frac = sigmag_pool_tail_fraction(order, lh_px, k, k_search)
+                _warn_on_pool_tail_churn(order, lh_px, k, k_search)
             kept_real = np.take_along_axis(lh_px, order, axis=1) > -FLT_MAX
             flat = (np.arange(n_pix)[:, None] * k_search + order).reshape(-1)
             results = {key: val[flat] for key, val in results.items()}
@@ -868,23 +889,14 @@ def assemble_core_results(
         keepm = results["lh"] >= float(compact_min_lh)
         results = {key: val[keepm] for key, val in results.items()}
 
-    return results, tail_frac
-
-
-def sigmag_pool_tail_fraction(order, lh_px, k, k_search):
-    """The fraction of kept rows that the sigma-G re-rank promoted out of
-    the bottom quartile of the unclipped pool."""
-    kept = order[:, :k]
-    real = np.take_along_axis(lh_px, kept, axis=1) > -FLT_MAX
-    n_real = int(real.sum())
-    if n_real == 0:
-        return 0.0
-    tail_start = k_search - max(k_search // 4, 1)
-    return float(((kept >= tail_start) & real).sum()) / n_real
+    return results
 
 
 def _warn_on_pool_tail_churn(order, lh_px, k, k_search, threshold=0.01):
-    frac = sigmag_pool_tail_fraction(order, lh_px, k, k_search)
+    kept = order[:, :k]
+    real = np.take_along_axis(lh_px, kept, axis=1) > -FLT_MAX
+    tail_start = k_search - max(k_search // 4, 1)
+    frac = float(((kept >= tail_start) & real).sum()) / max(int(real.sum()), 1)
     if frac > threshold:
         logger.warning(
             "sigma-G re-rank promoted %.2f%% of kept rows from the bottom "
@@ -892,24 +904,6 @@ def _warn_on_pool_tail_churn(order, lh_px, k, k_search, threshold=0.01):
             "active and results may miss clipped-promoted candidates.",
             100.0 * frac,
             k_search,
-        )
-    return frac
-
-
-class _SigmaGEscalation:
-    """Gate for the sigma-G pixel-exact refinement pass: on in the
-    over-provisioned mode whenever the pool is smaller than the candidate
-    set (a full pool is already exact), unless ``KB_SIGMAG_AUTO=0`` (warn
-    only). Pixels whose kept top-K membership the clipped re-rank changed
-    are then re-scored against every candidate
-    (:func:`exact_refine_pixels`)."""
-
-    def __init__(self, do_sigmag, sigmag_mode, over, k, num_cand):
-        self.enabled = (
-            bool(do_sigmag)
-            and sigmag_mode != "exact"
-            and int(over) * int(k) < int(num_cand)
-            and os.environ.get("KB_SIGMAG_AUTO", "1") != "0"
         )
 
 

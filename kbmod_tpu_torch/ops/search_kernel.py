@@ -221,6 +221,13 @@ def k2_staging(dxs, dys, x_min, y_min):
     return dict(order=order, starts=starts, lay=lay, off=off, buf_elems=buf_elems, smem_bytes=smem)
 
 
+def padding_bytes(T, H, W):
+    """Device bytes of K2's copy of float planes padded to a multiple of K2_CHUNK
+    columns (:func:`_padded_planes`, 9 bytes a pixel and time), 0 if none is made."""
+    Wp = -(-W // K2_CHUNK) * K2_CHUNK
+    return 0 if Wp == W else 9 * T * H * Wp
+
+
 def _padded_planes(psi, phi, valid, has_masked):
     """psi, phi (and valid) with rows padded with zeros to a multiple of
     16 pixels and 16-byte aligned, as the kernel's 16-byte copies need;

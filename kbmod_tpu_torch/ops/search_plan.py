@@ -33,6 +33,9 @@ GROUP_S = 8
 # Time steps of a group's tables a grouped kernel holds in shared memory at
 # once (kb_stage::kRows in csrc/stage_window.cuh).
 STAGE_ROWS = 64
+# Elements of one band of the dedup expansion's dense intermediates
+# (:func:`_expand_topk_classes`).
+EXPAND_BAND = 1 << 24
 
 _DEDUP_CACHE = {}
 _PLAN_CACHE = {}
@@ -121,10 +124,10 @@ def _expand_topk_classes(top_lh, top_idx, members, row_band=None):
         np.concatenate([members[:, :Km], np.full((1, Km), -1, np.int32)]), device=dev
     ).to(torch.int64)
     int_max = int(np.iinfo(np.int32).max)
-    # Bands of rows keep each dense (K*Km, rows*SW) intermediate near 2^24
-    # elements.
+    # Bands of rows keep each dense (K*Km, rows*SW) intermediate near
+    # EXPAND_BAND elements.
     if row_band is None:
-        row_band = max(8, (1 << 24) // max(K * Km * SW, 1))
+        row_band = max(8, EXPAND_BAND // max(K * Km * SW, 1))
     out_lh, out_idx = [], []
     for y0 in range(0, SH, row_band):
         rows = top_lh[:, y0 : y0 + row_band].shape[1]
@@ -144,6 +147,19 @@ def _expand_topk_classes(top_lh, top_idx, members, row_band=None):
         sel = torch.gather(key_idx, 0, by_lh)
         out_idx.append(torch.where(sel == int_max, -1, sel).to(torch.int32).reshape(K, rows, SW))
     return torch.cat(out_lh, dim=1), torch.cat(out_idx, dim=1)
+
+
+def expand_bytes(k_search, rows, SW):
+    """Device bytes of :func:`_expand_topk_classes` on (K', rows, SW) maps: the
+    expanded maps (16 bytes a slot) and one band of its sort (64 an element)."""
+    return 16 * k_search * rows * SW + EXPAND_BAND * 64
+
+
+def layouts_bytes(C, T):
+    """Device bytes of the plans of C candidates over T steps: offsets (16
+    bytes a pair), window layouts (:func:`window_layout`, 52 bytes a group
+    and step, a group per candidate at most), order and indices (16)."""
+    return 16 * C * T + 52 * C * T + 16 * C
 
 
 def _plan_groups(dys_np, G, S):

@@ -125,6 +125,35 @@ def search_mesh(device):
     return mesh
 
 
+def shard_mode():
+    """``KB_SHARD_MODE``: ``candidates`` (the default), ``pixels`` or ``time``."""
+    return os.environ.get("KB_SHARD_MODE", "candidates")
+
+
+def shards_bytes(device, k_search, rows, SW, C):
+    """Device bytes a search sharded on ``device``'s mesh holds beside a
+    one-device search of C candidates into (K', rows, SW) maps (0 without
+    a mesh). Candidates mode: the maps of each shard here and of each
+    process (8 bytes a slot) and a merge step (two parts, their sort, the
+    copy, the output: 64). Pixels mode: the shards' rows and their join,
+    twice in a group (16 each). Time mode: a candidate chunk's sums,
+    partials, gathers and merge (128 bytes a (candidate, pixel), the chunk
+    at most TIME_CHUNK_ELEMENTS or one candidate) and the merge (28)."""
+    mesh = search_mesh(device)
+    if mesh is None:
+        return 0
+    slots = k_search * rows * SW
+    mode = shard_mode()
+    if mode == "time":
+        chunk = min(max(C, 1), max(1, TIME_CHUNK_ELEMENTS // (rows * SW)))
+        return 128 * chunk * rows * SW + 28 * slots
+    if mode == "pixels":
+        return 16 * (2 if mesh.world_size > 1 else 1) * slots
+    here = sum(d == mesh.root for d in mesh.devices)
+    gathered = mesh.world_size if mesh.world_size > 1 else 0
+    return (8 * (here + gathered) + 64) * slots
+
+
 def _pad_to_multiple(arr, multiple, axis=0, fill=0):
     n = arr.shape[axis]
     rem = (-n) % multiple
@@ -518,6 +547,6 @@ def sharded_core_search(
 
 
 __all__ = [
-    "Mesh", "build_mesh", "search_mesh", "sharded_search_topk", "sharded_sigmag_exact_topk", "sharded_psi_phi_build",
-    "make_sharded_evaluators", "sharded_core_search",
+    "Mesh", "build_mesh", "search_mesh", "shard_mode", "shards_bytes", "sharded_search_topk",
+    "sharded_sigmag_exact_topk", "sharded_psi_phi_build", "make_sharded_evaluators", "sharded_core_search",
 ]

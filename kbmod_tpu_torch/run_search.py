@@ -51,14 +51,14 @@ from kbmod_tpu_torch.filters.clustering_grid import apply_trajectory_grid_filter
 from kbmod_tpu_torch.filters.sigma_g_filter import SigmaGClipping, apply_clipped_sigma_g
 from kbmod_tpu_torch.filters.sns_filters import peak_offset_filter, predictive_line_cluster
 from kbmod_tpu_torch.filters.stamp_filters import append_all_stamps, append_coadds, filter_stamps_by_cnn
-from kbmod_tpu_torch.ops.psi_phi import _conv_batch_budget, _padded_width
-from kbmod_tpu_torch.ops.search import (
-    EVAL_CHUNK, EXACT_BYTES_PER_SAMPLE, EXACT_CHUNK_SAMPLES, EXACT_ROW_TILE, sigmag_pool_factor,
-)
-from kbmod_tpu_torch.ops.search_kernel import K2_CHUNK
-from kbmod_tpu_torch.parallel.sharded import TIME_CHUNK_ELEMENTS, search_mesh
+from kbmod_tpu_torch.ops.psi_phi import build_bytes, planes_bytes
+from kbmod_tpu_torch.ops.search import exact_bytes, gathers_bytes, maps_bytes, search_depth
+from kbmod_tpu_torch.ops.search_kernel import padding_bytes
+from kbmod_tpu_torch.ops.search_plan import expand_bytes, layouts_bytes
+from kbmod_tpu_torch.parallel.sharded import shards_bytes
 from kbmod_tpu_torch.results import Results, write_results_to_files_destructive
 from kbmod_tpu_torch.search import StackSearch, TrajectoryList
+from kbmod_tpu_torch.search.checkpoint import checkpoint_bytes
 from kbmod_tpu_torch.trajectory_generator import create_trajectory_generator
 from kbmod_tpu_torch.trajectory_utils import predict_pixel_locations
 
@@ -66,16 +66,8 @@ logger = logging.getLogger("kbmod.run_search")
 
 # Rows of psi/phi curves load_and_filter_results gathers and clips at once.
 RESULTS_BATCH = 100_000
-# Device bytes one (row, time) sample of a gather holds at most: the int64
-# pixel and index tensors, the masks and the gathered float32 values
-# (ops/search.py ``_gather_curves``).
-GATHER_BYTES_PER_SAMPLE = 96
 # Device bytes one curve sample holds while torch.nanquantile sorts it.
 QUANTILE_BYTES_PER_SAMPLE = 64
-# The elements of one band of the dedup expansion (search_plan.py
-# ``_expand_topk_classes``), and the bytes each holds there.
-EXPAND_BAND = 1 << 24
-EXPAND_BYTES_PER_ELEMENT = 64
 
 
 def _resolve_start_bounds(config, axis, image_extent):
@@ -124,59 +116,29 @@ def configure_kb_search_stack(search, config):
     # Per-row-tile checkpoints, so that a killed pipeline resumes mid-search
     # (the JAX package's run_search.py:81-90; env-gated to keep the
     # configuration's schema the reference's).
-    ckpt_dir = os.environ.get("KB_SEARCH_CKPT_DIR")
-    if ckpt_dir:
-        search.enable_search_checkpointing(ckpt_dir, tile_rows=checkpoint_tile_rows())
+    ckpt = search_checkpointing()
+    if ckpt:
+        search.enable_search_checkpointing(ckpt[0], tile_rows=ckpt[1])
     search.clear_results()
 
 
-def checkpoint_tile_rows():
-    """Rows of a checkpoint tile: ``KB_SEARCH_CKPT_TILE_ROWS``, default 256."""
-    return int(os.environ.get("KB_SEARCH_CKPT_TILE_ROWS", "256"))
+def search_checkpointing():
+    """(``KB_SEARCH_CKPT_DIR``, rows a tile: ``KB_SEARCH_CKPT_TILE_ROWS`` or
+    256), or None without a directory."""
+    ckpt_dir = os.environ.get("KB_SEARCH_CKPT_DIR")
+    return (ckpt_dir, int(os.environ.get("KB_SEARCH_CKPT_TILE_ROWS", "256"))) if ckpt_dir else None
 
 
 def search_memory_budget(config, stack, num_candidates, device):
     """The most device memory, in bytes, the port allocates for
     ``do_core_search`` on this configuration and stack, term by term (each
-    an upper bound; "total" is their sum):
-
-    - planes: the kept float psi/phi/validity planes (9 bytes a pixel and
-      time) or the interleaved uint8/uint16 code pairs (2 or 4 bytes);
-    - build: the build's transients: K1's float inputs and outputs for a
-      PSF batch of images (48 bytes a pixel with the quantized build's
-      encode temporaries), and for the float path the unpacked planes and
-      masks the packing holds beside the kept ones;
-    - padding: K2's copy of the float planes when the width is not a
-      multiple of its 16-pixel chunk;
-    - maps: the (K', SH, SW) lh/index maps (8 bytes a slot), K' = the
-      pool factor (``KB_SIGMAG_TOPK_FACTOR``, default 4) times K under the
-      in-kernel sigma-G pool, and their compaction on the card (17: the
-      mask, int64 positions, the values);
-    - expand: the dedup expansion of the quantized search (a second set of
-      maps and one band of its sort);
-    - layouts: the offsets and the grouped kernels' window layouts;
-    - gathers: one EVAL_CHUNK-row winner re-scoring gather over all T;
-    - curves: one RESULTS_BATCH-row curve gather and its sigma-G quantiles;
-    - exact: under ``KB_SIGMAG_MODE=exact``, the decoded planes of a
-      quantized stack (9 bytes a pixel and time), one candidate chunk's
-      curves over a row tile (EXACT_BYTES_PER_SAMPLE a sample) and the
-      tile's lists with their merge sort (24 bytes a slot);
-    - checkpoint: under ``KB_SEARCH_CKPT_DIR`` the fingerprint's digest of
-      one plane (three int64 words an element of the widest plane set);
-      the maps, expansion, gathers and exact-mode terms then count one
-      tile of ``KB_SEARCH_CKPT_TILE_ROWS`` rows instead of the window;
-    - shards: when ``search_all`` shards (``parallel.sharded.search_mesh``):
-      in candidates mode the K'-deep maps of each shard on this device and,
-      in a group, of each process's merge (8 bytes a slot), and one step of
-      the merge, which takes one part at a time (two parts' maps, their
-      sort with int64 order, the copy and the output: 64 bytes a slot); in
-      pixels mode the shards' rows and their concatenation, and as much
-      again for the processes' (16 bytes a slot each); in time mode one
-      candidate chunk's sums, partial sums, gathers and lh temporaries and
-      its merge (128 bytes a (candidate, pixel) slot of the chunk, at most
-      ``TIME_CHUNK_ELEMENTS`` or one candidate's pixels) and the merge's
-      sort and output (28 bytes a slot).
-    """
+    an upper bound; "total" is their sum). The module that allocates a term
+    computes and describes it as ``<term>_bytes``: planes, build in ``ops.psi_phi``;
+    padding (float) in ``ops.search_kernel``; expand (quantized), layouts in
+    ``ops.search_plan``; maps, gathers, exact in ``ops.search``; checkpoint in
+    ``search.checkpoint``; shards in ``parallel.sharded``. Curves, a curve gather of
+    RESULTS_BATCH rows and its sigma-G quantiles, are the pipeline's. A checkpointed
+    search counts one tile of rows. K' is ``ops.search.search_depth``'s."""
     T, H, W = stack.num_times, stack.height, stack.width
     C = int(num_candidates)
     nb = int(config["encode_num_bytes"])
@@ -187,64 +149,26 @@ def search_memory_budget(config, stack, num_candidates, device):
         return image_extent if bounds is None else bounds[1] - bounds[0]
 
     SH, SW = extent("y", H), extent("x", W)
-    ckpt = bool(os.environ.get("KB_SEARCH_CKPT_DIR"))
+    ckpt = search_checkpointing()
     # The rows whose maps one search holds at a time.
-    SHs = min(SH, checkpoint_tile_rows()) if ckpt else SH
+    rows = min(SH, ckpt[1]) if ckpt else SH
     on_gpu = not config["cpu_only"]
-    k = int(config["results_per_pixel"])
-    if not on_gpu:
-        k = min(k, C)
-    sigmag_pool = on_gpu and config["sigmaG_filter"] and config["gpu_filter"]
-    exact = sigmag_pool and os.environ.get("KB_SIGMAG_MODE", "overprovision") == "exact"
-    over = sigmag_pool_factor()
-    k_search = max(min(C, over * k if sigmag_pool and not exact else k), k)
-
-    px, hw = T * H * W, H * W
-    # Images of one PSF batch of the build (ops/psi_phi.py), doubled where
-    # there are several batches: the next batch's inputs arrive while the
-    # last one's are still held.
-    batch = min(T, max(1, int(_conv_batch_budget(device) // (16 * hw))))
-    live = batch * (2 if batch < T else 1)
-    terms = {}
-    if quantized:
-        terms["planes"] = 2 * nb * T * H * _padded_width(W)
-        terms["build"] = 48 * live * hw
-        terms["padding"] = 0
-        terms["expand"] = 16 * k_search * SHs * SW + EXPAND_BAND * EXPAND_BYTES_PER_ELEMENT
-    else:
-        terms["planes"] = 9 * px
-        terms["build"] = max(8 * px + 16 * live * hw, 11 * px)
-        terms["padding"] = 0 if W % K2_CHUNK == 0 else 9 * T * H * (-(-W // K2_CHUNK) * K2_CHUNK)
-        terms["expand"] = 0
-    terms["maps"] = (8 + 17) * k_search * SHs * SW
-    terms["layouts"] = 16 * C * T + 52 * C * T + 16 * C
-    terms["gathers"] = GATHER_BYTES_PER_SAMPLE * min(EVAL_CHUNK, k_search * SHs * SW) * T
-    rows = min(RESULTS_BATCH, k_search * SH * SW)
-    terms["curves"] = (GATHER_BYTES_PER_SAMPLE + QUANTILE_BYTES_PER_SAMPLE) * rows * T
-    terms["exact"] = 0
-    if exact:
-        tile = min(EXACT_ROW_TILE, SHs) * SW
-        chunk = max(1, EXACT_CHUNK_SAMPLES // (tile * T))
-        terms["exact"] = (
-            (9 * px if quantized else 0)
-            + EXACT_BYTES_PER_SAMPLE * min(chunk, C) * tile * T
-            + 24 * (k_search + min(chunk, C)) * tile
-        )
-    terms["checkpoint"] = 48 * H * _padded_width(W) if ckpt else 0
-    terms["shards"] = 0
-    mesh = search_mesh(device)
-    if mesh is not None:
-        slots = k_search * SHs * SW
-        mode = os.environ.get("KB_SHARD_MODE", "candidates")
-        if mode == "time":
-            chunk = min(max(C, 1), max(1, TIME_CHUNK_ELEMENTS // (SHs * SW)))
-            terms["shards"] = 128 * chunk * SHs * SW + 28 * slots
-        elif mode == "pixels":
-            terms["shards"] = 16 * (2 if mesh.world_size > 1 else 1) * slots
-        else:
-            here = sum(d == mesh.root for d in mesh.devices)
-            gathered = mesh.world_size if mesh.world_size > 1 else 0
-            terms["shards"] = (8 * (here + gathered) + 64) * slots
+    k = int(config["results_per_pixel"]) if on_gpu else min(int(config["results_per_pixel"]), C)
+    mode, ks, _ = search_depth(on_gpu and config["sigmaG_filter"] and config["gpu_filter"], k, C)
+    curve_rows = min(RESULTS_BATCH, ks * SH * SW)
+    terms = {
+        "planes": planes_bytes(nb, T, H, W),
+        "build": build_bytes(nb, T, H, W, device),
+        "padding": 0 if quantized else padding_bytes(T, H, W),
+        "expand": expand_bytes(ks, rows, SW) if quantized else 0,
+        "maps": maps_bytes(ks, rows, SW),
+        "layouts": layouts_bytes(C, T),
+        "gathers": gathers_bytes(ks * rows * SW, T),
+        "curves": gathers_bytes(ks * SH * SW, T, chunk=RESULTS_BATCH) + QUANTILE_BYTES_PER_SAMPLE * curve_rows * T,
+        "exact": exact_bytes(device.type, quantized, C, T, H, W, ks, rows, SW) if mode == "exact" else 0,
+        "checkpoint": checkpoint_bytes(H, W) if ckpt else 0,
+        "shards": shards_bytes(device, ks, rows, SW, C),
+    }
     terms["total"] = sum(terms.values())
     return terms
 

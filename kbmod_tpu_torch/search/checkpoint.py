@@ -39,6 +39,7 @@ import torch
 import torch.distributed as dist
 
 from kbmod_tpu_torch.ops import search as search_ops
+from kbmod_tpu_torch.ops.psi_phi import padded_width
 from kbmod_tpu_torch.parallel.distributed import collective_device, process_rank_and_count
 
 logger = logging.getLogger(__name__)
@@ -117,6 +118,12 @@ def _plane_digests(a):
     n = a[0].numel()
     weights = torch.arange(1, n + 1, dtype=torch.int64, device=a.device) * _MIX | 1
     return torch.stack([(_as_int64(a[r].reshape(-1)) * weights).sum() for r in range(a.shape[0])]).cpu().numpy()
+
+
+def checkpoint_bytes(H, W):
+    """Device bytes of the fingerprint's digest (:func:`_plane_digests`, 3 int64 an
+    element) of the widest plane of an H x W stack, a quantized one's code pairs."""
+    return 48 * H * padded_width(W)
 
 
 def _fingerprint(psi, phi, valid, times, vxs, vys, bounds, rpp, kwargs):

@@ -348,7 +348,7 @@ class StackSearch:
         if mesh is not None:
             # The mesh-sharded search, as a per-tile search with core_search's
             # signature, so that it composes with checkpointing.
-            common["shard_mode"] = os.environ.get("KB_SHARD_MODE", "candidates")
+            common["shard_mode"] = sharded.shard_mode()
             logger.info(f"Sharded search over {mesh}, {common['shard_mode']} mode.")
 
             def search_fn(psi_, phi_, valid_, times_, vxs_, vys_, x0, x1, y0, y1, rpp_, **kw):

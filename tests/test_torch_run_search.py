@@ -20,7 +20,10 @@ side writes reads back through the port's ``Results.read_table`` equal to
 the port's table.
 """
 
+import json
 from collections import Counter
+from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -290,3 +293,33 @@ def test_memory_budget_counts_what_the_port_allocates(monkeypatch):
     assert port_run_search.check_gpu_memory(TSearchConfiguration(dict(BASE)), st, gen, dev)
     monkeypatch.setattr(port_run_search, "device_free_bytes", lambda device: flt["total"] - 1)
     assert not port_run_search.check_gpu_memory(TSearchConfiguration(dict(BASE)), st, gen, dev)
+
+
+# The benchmark cells' (T, C), with the height, width, search settings and
+# environment of their configuration files, and the budget's terms there
+# in bytes on the CPU device (the terms not listed are 0).
+CELL_BUDGETS = {
+    "regression_float": ((20, 1352), dict(
+        planes=94_371_840, build=251_658_240, maps=111_081_600, layouts=1_860_352, gathers=1_006_632_960,
+        curves=320_000_000, exact=3_203_235_840, total=4_988_840_832)),
+    "survey_u8": ((100, 33_153), dict(
+        planes=209_715_200, build=5_033_164_800, expand=1_207_959_552, maps=209_715_200, layouts=225_970_848,
+        gathers=5_033_164_800, curves=1_600_000_000, total=13_519_690_400)),
+}
+BUDGET_TERMS = ("planes", "build", "padding", "expand", "maps", "layouts", "gathers", "curves", "exact", "checkpoint",
+                "shards", "total")
+
+
+@pytest.mark.parametrize("name", sorted(CELL_BUDGETS))
+def test_memory_budget_of_the_benchmark_cells(monkeypatch, name):
+    """Every term of the budget, in its order, at a benchmark cell's
+    configuration and shapes."""
+    cfg = json.loads((Path(__file__).resolve().parents[1] / "benchmarks" / "configs" / f"{name}.json").read_text())
+    for var in ("KB_SIGMAG_MODE", "KB_SIGMAG_TOPK_FACTOR", "KB_SIGMAG_AUTO", "KB_SEARCH_CKPT_DIR", "KB_SHARDED"):
+        monkeypatch.delenv(var, raising=False)
+    for var, value in cfg.get("environment", {}).items():
+        monkeypatch.setenv(var, value)
+    (T, C), want = CELL_BUDGETS[name]
+    stack = SimpleNamespace(num_times=T, height=cfg["height"], width=cfg["width"])
+    got = port_run_search.search_memory_budget(TSearchConfiguration(cfg["search"]), stack, C, torch.device("cpu"))
+    assert list(got.items()) == [(term, want.get(term, 0)) for term in BUDGET_TERMS]

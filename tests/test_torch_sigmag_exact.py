@@ -24,6 +24,8 @@ Result rows compare as in tests/test_torch_stack_search.py and
 tests/test_torch_run_search.py.
 """
 
+from types import SimpleNamespace
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -38,6 +40,7 @@ from kbmod_tpu.trajectory_generator import KBMODV1Search
 
 import kbmod_tpu_torch.run_search as port_run_search
 from kbmod_tpu_torch.configuration import SearchConfiguration as TSearchConfiguration
+from kbmod_tpu_torch.ops import psi_phi as port_psi_phi
 from kbmod_tpu_torch.ops import search as ops
 from kbmod_tpu_torch.search import StackSearch as TStackSearch
 from kbmod_tpu_torch.search import psi_phi_array_from_numpy
@@ -381,3 +384,74 @@ def test_memory_budget_under_switches(monkeypatch):
     assert flt["exact"] == ops.EXACT_BYTES_PER_SAMPLE * 49 * tile * T + 24 * (8 + 49) * tile
     assert u8["exact"] == flt["exact"] + 9 * T * H * W
     assert budget()["exact"] == 0  # no in-kernel sigma-G: the mode does not apply
+
+
+def test_memory_budget_exact_on_a_card(monkeypatch):
+    """On a card the exact mode runs K7, so its term counts K7's (C, T)
+    offset pairs, percentile table and counter, and a quantized stack's
+    decoded planes, not the twin's row tile and candidate chunk; the other
+    terms are the CPU's. Arithmetic on the device type: no card needed."""
+    st = _port_stack(_jax_stack(False))
+    T, H, W = st.num_times, st.height, st.width
+    monkeypatch.setattr(port_psi_phi, "_conv_batch_budget", lambda device: 2 * 2**30)  # the host's
+    monkeypatch.delenv("KB_SHARDED", raising=False)
+    monkeypatch.setenv("KB_SIGMAG_MODE", "exact")
+
+    def budget(dev, **over):
+        config = TSearchConfiguration(dict(BASE, gpu_filter=True, **over))
+        return port_run_search.search_memory_budget(config, st, 49, torch.device(dev))
+
+    k7 = 8 * 49 * T + 12 * (T + 1) + 8
+    for over, decoded in (({}, 0), ({"encode_num_bytes": 1}, 9 * T * H * W)):
+        card, cpu = budget("cuda", **over), budget("cpu", **over)
+        assert card["exact"] == k7 + decoded
+        assert cpu["exact"] == ops.EXACT_BYTES_PER_SAMPLE * 49 * H * W * T + 24 * (8 + 49) * H * W + decoded
+        assert {t: v for t, v in card.items() if t not in ("exact", "total")} == {
+            t: v for t, v in cpu.items() if t not in ("exact", "total")}
+        assert card["total"] - card["exact"] == cpu["total"] - cpu["exact"]
+    assert ops.exact_bytes("cuda", False, 1352, 20, 1024, 512, 8, 1044, 532) == 8 * 1352 * 20 + 12 * 21 + 8
+
+
+@pytest.mark.parametrize(
+    "env,do_sigmag,depth",
+    [({}, False, ("", 1, False)), ({}, True, ("overprovision", 4, True)),
+     ({"KB_SIGMAG_TOPK_FACTOR": "7"}, True, ("overprovision", 7, False)),
+     ({"KB_SIGMAG_MODE": "exact"}, True, ("exact", 1, False))],
+    ids=["off", "pool-4", "pool-7", "exact"],
+)
+def test_search_depth_is_one_rule(monkeypatch, env, do_sigmag, depth):
+    """``core_search`` and the memory budget take the sigma-G mode, the
+    depth K' and the refinement from ``search_depth``: K = 1 over 7
+    candidates, a pool of 4 (refined: it holds fewer than every candidate)
+    or of 7 (every candidate, so exact as it is)."""
+    for name in ("KB_SIGMAG_MODE", "KB_SIGMAG_TOPK_FACTOR", "KB_SIGMAG_AUTO", "KB_SHARDED"):
+        monkeypatch.delenv(name, raising=False)
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    T, H, W, C = 6, 9, 8, 7
+    assert tuple(ops.search_depth(do_sigmag, 1, C)) == depth
+    seen = {}
+
+    def topk_fn(*args, **kw):
+        seen["mode"], seen["k_search"] = kw["sigmag_mode"], kw["k_results"]
+        return ops._local_topk(*args, **kw)
+
+    assemble = ops.assemble_core_results
+
+    def assembled(*args, **kw):
+        seen["assemble_k_search"], seen["refine"] = kw["k_search"], kw["refine_fn"] is not None
+        return assemble(*args, **kw)
+
+    monkeypatch.setattr(ops, "assemble_core_results", assembled)
+    rng = np.random.default_rng(5)
+    psi = torch.as_tensor(rng.normal(1.0, 1.0, (T, H, W)).astype(np.float32))
+    ops.core_search(psi, torch.ones_like(psi), torch.ones((T, H, W), dtype=torch.uint8), np.arange(T, dtype=np.float64),
+                    np.linspace(-1.0, 1.0, C).astype(np.float32), np.zeros(C, np.float32), 0, W, 0, H, 1,
+                    min_obs=3, min_lh=-10.0, do_sigmag=do_sigmag, sigmag_coeff=COEFF, topk_fn=topk_fn)
+    mode, k_search, refine = depth
+    assert seen == dict(mode=mode, k_search=k_search, assemble_k_search=k_search, refine=refine)
+    config = TSearchConfiguration(dict(BASE, gpu_filter=do_sigmag, results_per_pixel=1))
+    got = port_run_search.search_memory_budget(config, SimpleNamespace(num_times=T, height=H, width=W), C,
+                                               torch.device("cpu"))
+    assert got["maps"] == ops.maps_bytes(k_search, H, W)
+    assert (got["exact"] > 0) == (mode == "exact")
