@@ -154,6 +154,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    lists of K = 128 (kept in the maps) on the band; K5 through the
    dispatcher (dedup + K5 + expansion) at the JAX package's
    ``midscale_kernel`` shapes (T = 64, 2048 x 2048, C = 33,153, K = 8);
+   K5 at the benchmark's band cell's shapes (100 x 256 x 4096 random uint8
+   codes over 1.35 days, the 257 x 129 EclipticCenteredSearch grid of
+   33,153 candidates, its grouping plan, K = 8, min_obs 10, the min_lh gate
+   at 10) beside its twin on 8 rows and its bound, with the tracer's
+   counts of its steps on each path and its launches counted;
    K6's three modes at the script's defaults and at NG = 3,015; and K7 at
    the regression's shapes (20 x 1024 x 512 planes, the 1,044 x 532
    window of its pixel buffers, its 1,352 candidates, K = 8, min_obs 15,
@@ -3110,6 +3115,9 @@ def time_encoded(kernel, planes, times, cands, bounds, K, min_obs, min_lh, dev, 
         st = ek.k5_staging(dxs, dys, bounds["x_min"], bounds["y_min"], extra["plan"])
         ngroups, bpsm = len(extra["plan"][1]), lib.kb_search_grouped_blocks_per_sm(K, st["smem_bytes"])
         px, tile = 2, (ek.K5_TILE_ROWS, ek.K5_TILE_COLS)
+        share = st["share"]
+        groups = (f"groups, group-steps prepared {share['steps_shared']} and per member {share['steps_own']}, "
+                  f"each staged pixel read {share['pixels_read'] / share['pixels_staged']:.3f} times")
     else:
         lib = _build.load("search_topk_encoded_grouped", ek._K3_SIGNATURES)
         bits = 8 * planes.psi_codes.element_size()
@@ -3173,6 +3181,48 @@ def time_midscale(dev, T=64, size=2048, C=257 * 129, K=8):
         f"bound {bound_ms:.3f} ms ({bound_by}, {n_samples} valid samples of the classes)"
         + (f"; cut to a {cut}" if cut else ""))
     return dict(ms=ms, evals_per_s=evals / (ms / 1e3), bound_ms=bound_ms, route=route, cut=cut)
+
+
+def time_band_cell(dev, seed=25):
+    """K5 at the survey band cell's shapes (BENCHMARK.json
+    ``survey_u8.band256``): random uint8 codes with about 2% zeros, times
+    linspace(0, 1.35, 100), KBMOD's default grid, K = 8; ``time_encoded``
+    with the twin on 8 rows, then one traced launch for the tracer's K5
+    counters (steps prepared and per member, pixels staged and read); its
+    launches counted (6)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kbmod_tpu_torch import tracing
+    from kbmod_tpu_torch.ops import search_encoded_kernel as ek
+    from kbmod_tpu_torch.ops.search import EncodedPlanes, trajectory_offsets
+    from kbmod_tpu_torch.ops.search_encoded import encoded_route
+    from kbmod_tpu_torch.trajectory_generator import EclipticCenteredSearch
+
+    rng = np.random.default_rng(seed)
+    psi, phi = _code_stack(rng, 100, 256, 4096, 8, zeros=0.01)
+    planes = EncodedPlanes.from_codes(psi, phi, MIDSCALE_EM, dev)
+    del psi, phi
+    cands = list(EclipticCenteredSearch(velocities=[92.0, 526.0, 257], angles=[-np.pi / 15, np.pi / 15, 129],
+                                        angle_units="radian", given_ecliptic=0.0))
+    times = np.linspace(0.0, 1.35, 100)
+    bounds = dict(x_min=0, x_max=4096, y_min=0, y_max=256)
+    before = ek.search_grouped.launches
+    r = time_encoded("K5", planes, times, cands, bounds, 8, 10.0, 10.0, dev, twin_rows=8)
+    dxs, dys = trajectory_offsets(np.array([c.vx for c in cands], np.float32),
+                                  np.array([c.vy for c in cands], np.float32), times)
+    tracing.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        ek.search_grouped(planes, torch.as_tensor(dxs, device=dev), torch.as_tensor(dys, device=dev), 10.0, 10.0,
+                          plan=encoded_route(torch.uint8, 100, dys)[1], k_results=8, gate_min_lh=True, **bounds)
+        torch.cuda.synchronize()
+    k5 = {k: v for k, v in tracing.totals().items() if k.startswith("k5.")}
+    log(f"band cell: K5 counters {k5}, each staged pixel read "
+        f"{k5['k5.pixels.read'] / k5['k5.pixels.staged']:.3f} times")
+    if ek.search_grouped.launches != before + 6:
+        raise AssertionError(f"band cell: K5 launched {ek.search_grouped.launches - before} times, not 6")
+    if k5["k5.steps.shared"] < 100 * k5["k5.steps.own"]:
+        raise AssertionError(f"band cell: K5 prepared too few steps: {k5}")
+    return r
 
 
 def time_k7(dev, seed=1001):
@@ -3327,12 +3377,14 @@ def main():
     del searches, u8, u16
     torch.cuda.empty_cache()
     mid = time_midscale(dev)
+    k5_cell = time_band_cell(dev)
     k6 = time_k6(dev)
     k7 = time_k7(dev)
     for name, r in (("K1 psi_phi_conv", k1), ("K2 search_topk", k2), ("K2 search_topk, band", k2_band),
                     ("K2 search_topk, band, K = 128", k2_long), ("K3 search_encoded", k3),
                     ("K3 search_encoded, band, K = 128", k3_long), ("K4 search_paired", k4),
                     ("K5 search_grouped", k5), ("K5 search_grouped, band", k5_band),
+                    ("K5 search_grouped, band cell", k5_cell),
                     ("K7 sigmag_exact_topk, regression", k7)):
         log(f"{name} at {r['shape']}: {r['ms']:.3f} ms, twin {r['plain_ms']:.1f} ms, "
             f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}), library {r['library_ms']}"
@@ -3363,7 +3415,7 @@ def main():
         entry("search_paired", "search_topk_encoded.cu", "search_pallas.py:916", launches["search_paired"],
               err_enc["K4"], k4),
         entry("search_grouped", "search_topk_grouped.cu", "search_pallas.py:1493", launches["search_grouped"],
-              max(err_enc["K5"], k5_band["err"], err_long["K5"]), k5),
+              max(err_enc["K5"], k5_band["err"], k5_cell["err"], err_long["K5"]), k5),
         # K6 at midscale's group count, in mode C (K5's inner loop); its
         # launches are those of its own path, the micro-benchmark script.
         entry("exactrow_accumulate", "exactrow_microbench.cu", "scripts/exactrow_microbench.py:49", launches_k6,

@@ -59,8 +59,8 @@ _PAIRED_SIGNATURES = {
     "kb_search_paired_blocks_per_sm": ([_I, _I], ctypes.c_int),
 }
 _GRP_SIGNATURES = {
-    "kb_search_grouped": (_GROUPED_ARGS, ctypes.c_int),
-    "kb_search_grouped_smem_bytes": ([_I, _I], ctypes.c_size_t),
+    "kb_search_grouped": ([_I] + _GROUPED_ARGS, ctypes.c_int),
+    "kb_search_grouped_smem_bytes": ([_I, _I, _I], ctypes.c_size_t),
     "kb_search_grouped_tile": ([_I], ctypes.c_int),
     "kb_search_grouped_max_group": ([], ctypes.c_int),
     "kb_search_grouped_blocks_per_sm": ([_I, _I], ctypes.c_int),
@@ -73,9 +73,10 @@ _K3_SIGNATURES = {
     "kb_search_encoded_max_t": ([_I], ctypes.c_int),
     "kb_search_encoded_blocks_per_sm": ([_I, _I, _I], ctypes.c_int),
 }
-# K5's block tile (rows, columns), staging chunk in code pairs and the
+# K5's block tile (rows, columns), staging chunk in code pairs, the reads a
+# staged pixel from which a step is prepared once for the group, and the
 # steps its 16-bit fields hold before a flush (csrc/search_topk_grouped.cu).
-K5_TILE_ROWS, K5_TILE_COLS, K5_CHUNK = 4, 256, 8
+K5_TILE_ROWS, K5_TILE_COLS, K5_CHUNK, K5_SHARE_REUSE = 4, 256, 8, 1.5
 _K5_FLUSH = 257
 K5_MAX_T = 65535
 # K3's block tile (rows, columns) and its staging chunk in code pairs by code
@@ -114,27 +115,34 @@ def k4_staging(dxs, dys, x_min, y_min):
 
 def k5_staging(dxs, dys, x_min, y_min, plan):
     """K5's host layout for (C, T) offsets and a grouping plan ``(order,
-    starts)``: the window layout of its staged code pairs (one extra column
-    on each window's right, which an odd column shift reads) and the shared
-    memory it needs. Returns a dict with ``lay``, ``off``, ``buf_elems`` and
-    ``smem_bytes`` (header, two buffers of 2 bytes a pair, and the 32-bit
-    field sums past 257 steps). Raises ValueError when that exceeds a
-    block's shared memory."""
+    starts)``: the window layout of its staged code pairs, which steps it
+    prepares once for the group (``search_plan.share_summary`` at
+    K5_SHARE_REUSE) and the shared memory it needs. Returns a dict with
+    ``lay``, ``off``, ``buf_elems``, ``share`` (the summary), ``ext_elems``
+    (16-bit elements of a prepared buffer: 4 bytes a pixel of a prepared
+    step, 2 of any other) and ``smem_bytes`` (header, two raw buffers of 2
+    bytes a pair, two prepared buffers, the long phi sums and counts, and
+    the 32-bit field sums past 257 steps). Raises ValueError when that
+    exceeds a block's shared memory."""
     order, starts = (np.asarray(a, dtype=np.int64) for a in plan)
     T = np.shape(dxs)[1]
     if T > K5_MAX_T:
         raise ValueError(f"search_grouped: T={T} above the kernel's {K5_MAX_T}")
     dxs = np.asarray(dxs, dtype=np.int64)[order] + int(x_min)
     dys = np.asarray(dys, dtype=np.int64)[order] + int(y_min)
-    lay, off, buf_elems = window_layout_cached(
-        dxs, dys, starts, tile_rows=K5_TILE_ROWS, tile_cols=K5_TILE_COLS, chunk=K5_CHUNK, extra=1)
-    # 32-bit field sums past 257 steps: G members x (psi, phi) x 2 columns
-    # a thread, 512 threads, 4 bytes.
+    lay, off, buf_elems, share = window_layout_cached(
+        dxs, dys, starts, tile_rows=K5_TILE_ROWS, tile_cols=K5_TILE_COLS, chunk=K5_CHUNK,
+        share_reuse=K5_SHARE_REUSE)
+    ext_elems = max(2 * share["elems_shared"], share["elems_own"])
+    # A thread's long phi sums and counts (G members x 4 bytes each), and
+    # past 257 steps its 32-bit field sums (G members x (psi, phi) x 2
+    # columns x 4 bytes); 512 threads.
+    sums = GROUP_G * 2 * 512 * 4
     wide = GROUP_G * 4 * 512 * 4 if T > _K5_FLUSH else 0
-    smem = staging_header_bytes() + 2 * 2 * buf_elems + wide
+    smem = staging_header_bytes() + 2 * 2 * buf_elems + 2 * 2 * ext_elems + sums + wide
     if smem > _build.MAX_SMEM_BYTES:
         raise ValueError(f"search_grouped: T={T} windows need {smem} bytes of shared memory")
-    return dict(lay=lay, off=off, buf_elems=buf_elems, smem_bytes=smem)
+    return dict(lay=lay, off=off, buf_elems=buf_elems, share=share, ext_elems=ext_elems, smem_bytes=smem)
 
 
 def k3_staging(dxs, dys, x_min, y_min, bits):
@@ -406,12 +414,15 @@ def search_grouped(planes, dxs, dys, min_obs, min_lh, *, plan, **kw):
             raise ValueError("search_grouped: the plan's order must be a permutation of the candidates")
         dx_np, dy_np = _offsets_np(dxs, dys)
         st = k5_staging(dx_np, dy_np, kw["x_min"], kw["y_min"], (order, starts))
-    tile = tuple(lib.kb_search_grouped_tile(a) for a in range(3))
-    if (tile != (K5_TILE_ROWS, K5_TILE_COLS, K5_CHUNK) or G != GROUP_G
-            or st["smem_bytes"] != lib.kb_search_grouped_smem_bytes(T, st["buf_elems"])):
+    tile = tuple(lib.kb_search_grouped_tile(a) for a in range(4))
+    if (tile != (K5_TILE_ROWS, K5_TILE_COLS, K5_CHUNK, 2 * K5_SHARE_REUSE) or G != GROUP_G
+            or st["smem_bytes"] != lib.kb_search_grouped_smem_bytes(T, st["buf_elems"], st["ext_elems"])):
         raise RuntimeError("search_grouped: host and kernel disagree on the tile, group or shared-memory layout")
-    out = _launch_grouped(lib, "kb_search_grouped", (), prepared, min_obs, min_lh, kw, st, order, starts,
-                          "search_grouped")
+    share = st["share"]
+    for name in ("steps_shared", "steps_own", "pixels_staged", "pixels_read"):
+        tracing.count("k5." + name.replace("_", "."), share[name])
+    out = _launch_grouped(lib, "kb_search_grouped", (st["ext_elems"],), prepared, min_obs, min_lh, kw, st, order,
+                          starts, "search_grouped")
     search_grouped.launches += 1
     return out
 

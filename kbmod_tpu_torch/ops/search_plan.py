@@ -16,7 +16,9 @@ in PyTorch on the maps' device.
   whose per-time rows are identical; :func:`grouped_plan` picks between
   them. Kernels K2, K3 and K5 search a group at a time.
 - :func:`window_layout` lays out, for the grouped kernels, the windows a
-  block stages in shared memory for each (group, time step).
+  block stages in shared memory for each (group, time step);
+  :func:`share_summary` says which of those steps K5 prepares once for the
+  whole group.
 """
 
 import hashlib
@@ -283,7 +285,7 @@ def window_layout_cached(ox, oy, starts, max_entries=8, **kw):
     return hit
 
 
-def window_layout(ox, oy, starts, *, tile_rows, tile_cols, chunk, extra=0, G=GROUP_G):
+def window_layout(ox, oy, starts, *, tile_rows, tile_cols, chunk, extra=0, G=GROUP_G, share_reuse=None):
     """Shared-memory layout of a grouped kernel's staged windows
     (csrc/stage_window.cuh).
 
@@ -300,6 +302,10 @@ def window_layout(ox, oy, starts, *, tile_rows, tile_cols, chunk, extra=0, G=GRO
     pitch, y, x); off (NG, T, G) int32, each member's window origin in
     pixels within the buffer (0 past the group's size); buf_elems, the
     largest step's pixel count, the size of one staging buffer.
+
+    With ``share_reuse``, a fourth item: :func:`share_summary` of the
+    layout, whose steps staging one box that the group's members read
+    ``share_reuse`` times over are prepared once for the group (K5).
     """
     ox = np.asarray(ox, dtype=np.int64)
     oy = np.asarray(oy, dtype=np.int64)
@@ -333,4 +339,28 @@ def window_layout(ox, oy, starts, *, tile_rows, tile_cols, chunk, extra=0, G=GRO
     buf_elems = int((lay[..., 0] * lay[..., 1] * lay[..., 2]).max())
     if np.abs(lay).max() >= 2**31 or off.max() >= 2**31:
         raise ValueError("window_layout: offsets beyond int32")
-    return lay.astype(np.int32), off.astype(np.int32), buf_elems
+    out = lay.astype(np.int32), off.astype(np.int32), buf_elems
+    if share_reuse is None:
+        return out
+    return out + (share_summary(lay, n, tile_rows * tile_cols, share_reuse),)
+
+
+def share_summary(lay, n, window, reuse):
+    """Which (group, t) steps of a layout a kernel prepares once for the
+    whole group (csrc/search_topk_grouped.cu): those that stage one box
+    (nslab 1) whose ``rows * pitch`` pixels the group's n members, each
+    reading ``window`` pixels, read at least ``reuse`` times over. The
+    kernel applies the same rule to each layout row.
+
+    Returns a dict: ``steps_shared`` and ``steps_own`` (group-steps
+    prepared, and left to each member's own extraction), ``pixels_staged``
+    and ``pixels_read`` (summed over every group-step; their ratio is the
+    mean reuse), ``elems_shared`` and ``elems_own`` (the largest step's
+    pixels on each path, 0 where it has none)."""
+    staged = lay[..., 0].astype(np.int64) * lay[..., 1] * lay[..., 2]
+    read = np.broadcast_to(n[:, None].astype(np.int64) * window, staged.shape)
+    shared = (lay[..., 0] == 1) & (reuse * lay[..., 1].astype(np.int64) * lay[..., 2] <= read)
+    n_shared = int(shared.sum())
+    return dict(steps_shared=n_shared, steps_own=int(shared.size) - n_shared, pixels_staged=int(staged.sum()),
+                pixels_read=int(read.sum()), elems_shared=int(staged[shared].max(initial=0)),
+                elems_own=int(staged[~shared].max(initial=0)))

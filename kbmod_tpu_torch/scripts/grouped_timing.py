@@ -14,8 +14,14 @@ band at K = 8, K4 (uint8) over the band and the main path's sparse list
 (every 26th candidate and the object's, 66) at K = 8 and K = 32, each with
 min_obs 32 and the min_lh gate at 10; K6 in modes A, B and C at the JAX
 script's sizes with NG = 64 and 3,015 (midscale's group count); a kernel the
-checkout lacks is skipped with a note. Prints one
-line of median milliseconds (3 launches each, 5 for K6, CUDA events).
+checkout lacks is skipped with a note. K5 also at the band cell's shapes
+(``survey_u8.band256``: 100 x 256 x 4096 random uint8 codes over 1.35 days,
+the 257 x 129 EclipticCenteredSearch grid, K = 8, min_obs 10, the min_lh
+gate at 10), on the main frame's sigma-G band at K = 32 and through the
+dispatcher at the JAX package's midscale shapes (T = 64, 2048 x 2048, the
+default survey grid, K = 8), each with the kernel alone by torch.profiler.
+Prints one line of median milliseconds (3 launches each, 5 for K6, CUDA
+events).
 Needs a card.
 Run it as a file, not with -m, so that the package is imported from
 ``--root``.
@@ -102,16 +108,73 @@ def main(argv=None):
 
     p8 = planes(8, np.array([-6.0, 12.0 / 254, 0.1, 4.0 / 254], np.float32))
     plan = grouped_plan(dys)[0]
-    k5 = ms(lambda: ek.search_grouped(p8, dx, dy, 32.0, 10.0, plan=plan, k_results=8, **gates, **full))
+    k5_run = lambda: ek.search_grouped(p8, dx, dy, 32.0, 10.0, plan=plan, k_results=8, **gates, **full)  # noqa: E731
+    k5 = ms(k5_run)
+    k5_alone = kernel_ms(k5_run, "grouped_kernel")
+    k5b_run = lambda: ek.search_grouped(p8, dx, dy, 32.0, 10.0, plan=plan, k_results=32, **gates, **band)  # noqa: E731
+    k5b = ms(k5b_run)
+    k5b_alone = kernel_ms(k5b_run, "grouped_kernel")
     del p8
     p16 = planes(16, np.array([-6.0, 12.0 / 65534, 0.1, 4.0 / 65534], np.float32))
     k3 = ms(lambda: ek.search_encoded(p16, dx, dy, 32.0, 10.0, k_results=8, **gates, **band))
     del p16
-    line = (f"K2 full {k2:.3f} ms, K2 band K=32 {k2b:.3f} ms, K5 full {k5:.3f} ms, K3 u16 band {k3:.3f} ms, "
+    line = (f"K2 full {k2:.3f} ms, K2 band K=32 {k2b:.3f} ms, K5 full {k5:.3f} ms (kernel alone {k5_alone}), "
+            f"K5 band K=32 {k5b:.3f} ms (kernel alone {k5b_alone}), " + time_k5_cells(ek, ms, dev)
+            + f", K3 u16 band {k3:.3f} ms, "
             + time_k4(ek, planes(8, np.array([-6.0, 12.0 / 254, 0.1, 4.0 / 254], np.float32)), dxs, dys, band, ms, dev)
             + ", " + time_k6(ms, dev))
     print(f"grouped_timing {args.root}: {line} ({torch.cuda.get_device_name(0)})", flush=True)
     return 0
+
+
+def time_k5_cells(ek, ms, dev):
+    """K5 at the band cell's shapes, and through the dispatcher at the
+    midscale shapes."""
+    import numpy as np
+    import torch
+
+    from kbmod_tpu_torch.ops.psi_phi import code_pair_views, interleave_code_pairs
+    from kbmod_tpu_torch.ops.search import EncodedPlanes, trajectory_offsets
+    from kbmod_tpu_torch.ops.search_encoded import search_topk_encoded
+    from kbmod_tpu_torch.ops.search_plan import grouped_plan
+    from kbmod_tpu_torch.trajectory_generator import EclipticCenteredSearch
+
+    em = np.array([-6.0, 12.0 / 254, 0.1, 4.0 / 254], np.float32)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    out = []
+    for tag, (T, H, W), times, cands in (
+        ("band cell", (100, 256, 4096), np.linspace(0.0, 1.35, 100),
+         EclipticCenteredSearch(velocities=[92.0, 526.0, 257], angles=[-np.pi / 15, np.pi / 15, 129],
+                                angle_units="radian", given_ecliptic=0.0)),
+        ("midscale", (64, 2048, 2048), np.linspace(0.0, 4.0, 64), None),
+    ):
+        codes = [torch.randint(0, 256, (T, H, W), device=dev, generator=gen, dtype=torch.uint8) for _ in range(2)]
+        pairs = interleave_code_pairs(*codes)
+        del codes
+        p8 = EncodedPlanes(*code_pair_views(pairs, W), em, pairs)
+        if cands is None:
+            n_vel, n_ang = 257, 129
+            vel = np.linspace(92.0, 526.0, n_vel) / 86.0
+            ang = np.linspace(-np.pi / 15, np.pi / 15, n_ang)
+            vv, aa = np.meshgrid(vel, ang)
+            vxs, vys = (np.cos(aa) * vv).ravel().astype(np.float32), (np.sin(aa) * vv).ravel().astype(np.float32)
+        else:
+            cands = list(cands)
+            vxs = np.array([c.vx for c in cands], np.float32)
+            vys = np.array([c.vy for c in cands], np.float32)
+        dxs, dys = trajectory_offsets(vxs, vys, times)
+        kw = dict(x_min=0, x_max=W, y_min=0, y_max=H, k_results=8)
+        if cands is None:
+            run = lambda: search_topk_encoded(p8, dxs, dys, 10.0, 0.0, **kw)  # noqa: E731
+        else:
+            dx, dy = torch.as_tensor(dxs, device=dev), torch.as_tensor(dys, device=dev)
+            plan = grouped_plan(dys)[0]
+            run = lambda: ek.search_grouped(p8, dx, dy, 10.0, 10.0, plan=plan, gate_min_lh=True, **kw)  # noqa: E731
+        out.append(f"K5 {tag} {ms(run):.3f} ms (kernel alone {kernel_ms(run, 'grouped_kernel')})")
+        del p8, pairs
+        torch.cuda.empty_cache()
+    return ", ".join(out)
 
 
 def time_k4(ek, p8, dxs, dys, band, ms, dev):

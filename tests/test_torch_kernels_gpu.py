@@ -296,6 +296,64 @@ def test_k5_odd_shifts_and_spread(dev):
         assert torch.equal(got[1], ref[1]) and torch.equal(got[0], ref[0])
 
 
+def _k5_against_twin(planes, dxs, dys, min_obs, plan, kw):
+    """One K5 launch against the twin; returns its share summary."""
+    dev = planes.psi_codes.device
+    dx, dy = torch.as_tensor(dxs, device=dev), torch.as_tensor(dys, device=dev)
+    launches = search_encoded_kernel.search_grouped.launches
+    got = search_encoded_kernel.search_grouped(planes, dx, dy, min_obs, 0.0, plan=plan, **kw)
+    assert search_encoded_kernel.search_grouped.launches == launches + 1
+    ref = search_encoded_kernel.search_topk_encoded_shift(
+        planes.psi_codes, planes.phi_codes, dx, dy, min_obs, 0.0, planes.em, **kw)
+    assert torch.equal(got[1], ref[1]) and torch.equal(got[0], ref[0])
+    return search_encoded_kernel.k5_staging(dxs, dys, kw["x_min"], kw["y_min"], plan)["share"]
+
+
+def test_k5_band_like_group(dev):
+    """A group as the band cell's: 8 members in one row class whose windows
+    overlap at odd and even column offsets, T = 100 (the tables reloaded),
+    K = 8; every step prepared once for the group."""
+    planes, _, _ = _encoded_inputs(dev, 100, 8, H=24, W=600)
+    times = np.linspace(0.0, 1.35, 100)
+    vxs = np.linspace(92.0, 99.0, 8).astype(np.float32)
+    dxs, dys = trajectory_offsets(vxs, np.full(8, 3.0, np.float32), times)
+    assert (dxs[:, 1:] % 2 == 1).any() and (dxs[:, 1:] % 2 == 0).any() and (dys == dys[:1]).all()
+    plan = (np.arange(8), np.array([0]))
+    share = _k5_against_twin(planes, dxs, dys, 30.0, plan, dict(x_min=-20, x_max=560, y_min=-3, y_max=20,
+                                                                  k_results=8, gate_min_lh=True))
+    assert share["steps_own"] == 0 and share["steps_shared"] == 100
+    assert share["pixels_read"] > 5 * share["pixels_staged"]
+
+
+def test_k5_mixed_paths_one_launch(dev):
+    """One launch whose groups take both paths: every third candidate
+    drifts up to 300 columns a step further, so early steps are prepared
+    once for the group and later ones, and far groups, extracted per
+    member."""
+    planes, dxs, dys = _encoded_inputs(dev, 9, 8, H=30, W=300, C=24, vmax=1.5)
+    far = np.arange(24) % 3 == 2
+    step = np.round(np.linspace(0.0, 300.0, 9)).astype(dxs.dtype)
+    dxs[far] += step[None, :] * (1 + np.arange(far.sum(), dtype=dxs.dtype))[:, None]
+    plan = search_plan.grouped_plan(dys)[0]
+    for K in (4, 32):
+        share = _k5_against_twin(planes, dxs, dys, 3.0, plan, dict(x_min=-9, x_max=300, y_min=-5, y_max=27,
+                                                                    k_results=K))
+        assert share["steps_shared"] > 0 and share["steps_own"] > 0
+
+
+@pytest.mark.parametrize("K", [8, 16, 64, 128])
+@pytest.mark.parametrize("T", [7, 64, 65, 257, 258, 300, 1500])
+def test_k5_prepared_steps_over_t_and_lists(dev, T, K):
+    """K5's prepared path either side of the tables' reload (64, 65), the
+    16-bit fields' limit (257, 258), past it (300, 1,500), with lists in
+    registers (8, 16, 64) and in the maps (128)."""
+    planes, dxs, dys = _encoded_inputs(dev, T, 8, H=20, W=300, C=29, vmax=3.0)
+    plan = _plan_groups(dys, 8, 8)
+    share = _k5_against_twin(planes, dxs, dys, float(T // 3), plan,
+                             dict(x_min=-7, x_max=305, y_min=-3, y_max=20, k_results=K))
+    assert share["steps_shared"] > share["steps_own"]
+
+
 @pytest.mark.parametrize("K", [1, 8, 32, 64])
 def test_k4_spread_odd_shifts_and_edges(dev, K):
     """K4 where the candidates spread far in columns (one slab per member),

@@ -32,7 +32,11 @@ from kbmod_tpu_torch.ops.search_encoded import encoded_route, search_topk_encode
 from kbmod_tpu_torch.ops.search_encoded_kernel import (
     K4_TILE_COLS,
     K4_TILE_ROWS,
+    K5_SHARE_REUSE,
+    K5_TILE_COLS,
+    K5_TILE_ROWS,
     k4_staging,
+    k5_staging,
     search_encoded,
     search_grouped,
     search_paired,
@@ -515,3 +519,227 @@ def test_k4_replay_matches_twin_and_pallas(case):
             jnp.asarray(psi), jnp.asarray(phi), jnp.asarray(dxs), jnp.asarray(dys), jnp.float32(3.0),
             jnp.float32(min_lh), jnp.asarray(EM), interpret=True, **kw)
         _assert_topk_close(ref, got, _lh_of(psi, phi, EM, dxs, dys, kw))
+
+
+def _rank_insert_by_index(top, topi, nv, ni):
+    """rank_insert<KB, true>: insert below every entry with a larger lh, or
+    an equal lh and a smaller index (candidates arrive in plan order)."""
+    K = top.shape[0]
+    p = ((top > nv[None]) | ((top == nv[None]) & (topi < ni))).sum(axis=0)
+    k = np.arange(K)[:, None]
+    shifted, shiftedi = np.concatenate([top[:1], top[:-1]]), np.concatenate([topi[:1], topi[:-1]])
+    top = np.where(k == p, nv[None], np.where(k > p, shifted, top))
+    topi = np.where(k == p, ni, np.where(k > p, shiftedi, topi))
+    return top.astype(np.float32), topi
+
+
+def _k5_replay(psi, phi, dxs, dys, min_obs, min_lh, em, plan, *, x_min, x_max, y_min, y_max, k_results,
+               gate_min_obs=True, gate_min_lh=False, cand_offset=0):
+    """K5 (csrc/search_topk_grouped.cu) replayed in numpy from its host plan:
+    per block of 4 x 256 window pixels (a thread one row, columns tx and tx
+    + 128), per group and step, stage the window in 16-byte chunks (zero
+    outside the image); a step whose box the members read K5_SHARE_REUSE
+    times over is prepared once (a 32-bit word a pixel: masked psi in bits
+    0-12, the indicator in 13-18, masked phi in 19-31) and each member adds
+    its two pixels' words into short sums, moved into 16-bit fields every 32
+    steps; any other step is extracted per member from the window's two
+    16-bit pixels, psi into the 16-bit fields and phi and the indicator
+    into the short sums; past 257 steps the fields go into 32-bit sums
+    every 256 steps. Then decode and rank-insert by (lh desc, index asc). Returns the
+    maps and the number of steps taken by each path."""
+    T, H, W = psi.shape
+    Wp = -(-W // 8) * 8
+    pairs = np.zeros((T, H, Wp), np.uint64)
+    pairs[:, :, :W] = psi.astype(np.uint64) | (phi.astype(np.uint64) << 8)
+    st = k5_staging(dxs, dys, x_min, y_min, plan)
+    lay, off, ext_elems = st["lay"], st["off"], st["ext_elems"]
+    order, starts = (np.asarray(a, dtype=np.int64) for a in plan)
+    ox, oy = dxs[order].astype(np.int64) + x_min, dys[order].astype(np.int64) + y_min
+    C = len(ox)
+    bounds = np.append(starts, C)
+    SH, SW, K = y_max - y_min, x_max - x_min, k_results
+    P, F, M32, M16 = 0x00FF00FF, 0x00010001, 0xFFFFFFFF, 0xFFFF
+    psi_s, psi_d = np.float32(em[1]), np.float32(em[0] - em[1])
+    phi_s, phi_d = np.float32(em[3]), np.float32(em[2] - em[3])
+    top = np.full((K, SH, SW), -np.finfo(np.float32).max, np.float32)
+    topi = np.full((K, SH, SW), -1, np.int64)
+    ty, tx = np.arange(K5_TILE_ROWS)[:, None], np.arange(K5_TILE_COLS // 2)[None, :]
+    steps = {"shared": 0, "own": 0}
+    wide = T > 257
+    for i0 in range(0, SH, K5_TILE_ROWS):
+        for col0 in range(0, SW, K5_TILE_COLS):
+            for g in range(len(starts)):
+                c0, n = int(bounds[g]), int(bounds[g + 1] - bounds[g])
+                sa, sb, ap, af, ao = (np.zeros((8,) + np.broadcast(ty, tx).shape, np.uint64) for _ in range(5))
+                w32 = np.zeros((8, 4) + sa.shape[1:], np.int64)  # 32-bit sums: psi, psi, phi, phi
+                for t in range(T):
+                    nslab, rows, pitch, y, x = (int(v) for v in lay[g, t])
+                    elems = nslab * rows * pitch
+                    assert pitch % 8 == 0 and elems <= st["buf_elems"]
+                    buf = np.zeros(elems, np.uint64)
+                    for sr in range(nslab * rows):
+                        if nslab == 1:
+                            yy, xx = i0 + y + sr, col0 + x
+                        else:
+                            m, r = divmod(sr, rows)
+                            yy, xx = i0 + oy[c0 + m, t] + r, col0 + (ox[c0 + m, t] & ~7)
+                        xs = xx + np.arange(pitch)
+                        ok = (0 <= yy < H) & (xs >= 0) & (xs < Wp)
+                        buf[sr * pitch:(sr + 1) * pitch] = np.where(ok, pairs[t, min(max(yy, 0), H - 1),
+                                                                               np.clip(xs, 0, Wp - 1)], 0)
+                    shared = (nslab == 1 and K5_SHARE_REUSE * elems <= n * K5_TILE_ROWS * K5_TILE_COLS
+                              and 2 * elems <= ext_elems)
+                    steps["shared" if shared else "own"] += 1
+                    if shared:
+                        w = buf[0::2] | (buf[1::2] << 16)
+                        pv, fv = w & P, (w >> 8) & P
+                        ind = ((pv + P) >> 8) & ((fv + P) >> 8) & F
+                        keep = ind * 0xFF
+                        pp, ff = (pv & keep) | (ind << 13), fv & keep
+                        ext = np.empty(elems, np.uint64)
+                        ext[0::2] = ((pp & M16) | (ff << 19)) & M32
+                        ext[1::2] = ((pp >> 16) | ((ff >> 16) << 19)) & M32
+                    for m in range(n):
+                        e = off[g, t, m] + tx + ty * pitch
+                        assert e.min() >= 0 and e.max() + 128 < elems
+                        if shared:
+                            sa[m] = (sa[m] + ext[e]) & M32
+                            sb[m] = (sb[m] + ext[e + 128]) & M32
+                        else:
+                            w = buf[e] | (buf[e + 128] << 16)
+                            pv, fv = w & P, (w >> 8) & P
+                            ind = ((pv + P) >> 8) & ((fv + P) >> 8) & F
+                            f = fv & (ind * 0xFF)
+                            ap[m] = (ap[m] + (pv & (ind * 0xFF))) & M32
+                            sa[m] = (sa[m] + (((f << 19) & M32) | ((ind & 1) << 13))) & M32
+                            sb[m] = (sb[m] + (((f >> 16) << 19) | ((ind >> 16) << 13))) & M32
+                    if t % 32 == 31 or t == T - 1:
+                        ap = (ap + ((sa & 0x1FFF) | ((sb & 0x1FFF) << 16))) & M32
+                        ao = (ao + (((sa >> 13) & 0x3F) | (((sb >> 13) & 0x3F) << 16))) & M32
+                        af = (af + ((sa >> 19) | ((sb >> 19) << 16))) & M32
+                        sa[:], sb[:] = 0, 0
+                    if wide and (t % 256 == 255 or t == T - 1):
+                        for q, v in enumerate((ap & M16, ap >> 16, af & M16, af >> 16)):
+                            w32[:, q] += v.astype(np.int64)
+                        ap[:], af[:] = 0, 0
+                for p in range(2):
+                    i, j = i0 + ty + 0 * tx, col0 + tx + 128 * p + 0 * ty
+                    live = (i < SH) & (j < SW)
+                    ii, jj = i[live], j[live]
+                    for m in range(n):
+                        obs = ((ao[m] >> (16 * p)) & M16)[live]
+                        if wide:
+                            ps, fs = w32[m, p][live], w32[m, 2 + p][live]
+                        else:
+                            ps, fs = ((ap[m] >> (16 * p)) & M16)[live], ((af[m] >> (16 * p)) & M16)[live]
+                        fobs = obs.astype(np.float32)
+                        psum = psi_s * ps.astype(np.float32) + psi_d * fobs
+                        fsum = phi_s * fs.astype(np.float32) + phi_d * fobs
+                        with np.errstate(divide="ignore", invalid="ignore"):
+                            lh = np.where(fsum > 0, psum / np.sqrt(fsum.astype(np.float64)).astype(np.float32),
+                                          np.float32(-1)).astype(np.float32)
+                        ok = np.ones(len(lh), bool)
+                        if gate_min_obs:
+                            ok &= fobs >= min_obs
+                        if gate_min_lh:
+                            ok &= lh >= min_lh
+                        nv = np.where(ok, lh, -np.inf).astype(np.float32)
+                        top[:, ii, jj], topi[:, ii, jj] = _rank_insert_by_index(
+                            top[:, ii, jj], topi[:, ii, jj], nv, cand_offset + order[c0 + m])
+    return (top, topi.astype(np.int32)), steps
+
+
+# (T, C, vmax, columns apart, keywords): windows that overlap (every step
+# prepared); candidates 300 columns apart at every step (every step per
+# member); every third candidate drifting up to 300 columns a step further
+# (early steps prepared, later ones per member, in one launch), with two
+# column blocks and every edge; past the short sums' 32 steps; past 257
+# steps (32-bit sums every 256).
+K5_REPLAY_CASES = {
+    "shared": (6, 19, 1.5, None, {}),
+    "own": (6, 19, 1.5, "apart", {}),
+    "mixed": (9, 24, 1.5, "drift", dict(x_min=-9, x_max=300, y_min=-5, y_max=19)),
+    "short_flush": (70, 19, 0.3, None, dict(gate_min_lh=True, min_lh=0.5, k_results=5, cand_offset=100)),
+    "wide": (300, 11, 0.05, None, dict(k_results=3)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K5_REPLAY_CASES))
+def test_k5_replay_matches_twin(case):
+    """K5's prepared and per-member paths, replayed in numpy, bit-equal to
+    the twin (ties by ascending index among exact duplicates), each path
+    taken where the case says."""
+    T, C, vmax, columns, kw = K5_REPLAY_CASES[case]
+    H, W = 14, 37
+    kw = dict(kw)
+    min_lh = kw.pop("min_lh", 0.0)
+    kw = dict(dict(x_min=0, x_max=W, y_min=0, y_max=H, k_results=4), **kw)
+    psi, phi = _codes(T, H, W, 8, seed=T + C)
+    dxs, dys = _offsets(C, T, seed=43, vmax=vmax)
+    dys = dys // 3
+    if columns == "apart":
+        dxs += 300 * np.arange(C, dtype=dxs.dtype)[:, None]
+    elif columns == "drift":
+        far = np.arange(C) % 3 == 2
+        step = np.round(np.linspace(0.0, 300.0, T)).astype(dxs.dtype)
+        dxs[far] += step[None, :] * (1 + np.arange(far.sum(), dtype=dxs.dtype))[:, None]
+    plan = search_plan.grouped_plan(dys)[0]
+    got, steps = _k5_replay(psi, phi, dxs, dys, 3.0, min_lh, EM, plan, **kw)
+    if columns is None:
+        assert steps["shared"] >= T * len(range(0, kw["x_max"] - kw["x_min"], K5_TILE_COLS))
+    elif columns == "apart":
+        assert steps["shared"] == 0 and steps["own"] > 0
+    else:
+        assert steps["shared"] > 0 and steps["own"] > 0
+    twin = search_topk_encoded_shift(torch.as_tensor(psi), torch.as_tensor(phi), torch.as_tensor(dxs),
+                                     torch.as_tensor(dys), 3.0, min_lh, EM, **kw)
+    np.testing.assert_array_equal(got[1], twin[1].numpy())
+    np.testing.assert_array_equal(got[0], twin[0].numpy())
+
+
+def _band_offsets():
+    """Offsets of the survey band cell: KBMOD's default 257 x 129
+    EclipticCenteredSearch grid over 100 times in 1.35 days."""
+    from kbmod_tpu_torch.trajectory_generator import EclipticCenteredSearch
+
+    gen = EclipticCenteredSearch(velocities=[92.0, 526.0, 257], angles=[-np.pi / 15, np.pi / 15, 129],
+                                 angle_units="radian", given_ecliptic=0.0)
+    cands = list(gen)
+    vxs = np.array([c.vx for c in cands], np.float32)
+    vys = np.array([c.vy for c in cands], np.float32)
+    return trajectory_offsets(vxs, vys, np.linspace(0.0, 1.35, 100))
+
+
+def test_band_cell_steps_are_all_prepared():
+    """At the band cell's grid (257 x 129 candidates, T = 100 over 1.35
+    days, a 257-row window), K5's layout sends every step of every group of
+    several members to the prepared path, each staged pixel read by 6 to 7
+    members on average; only the plan's one singleton group (33,153 = 4,144
+    x 8 + 1), whose box no other member reads, keeps the per-member path.
+    The buffers fit two blocks an SM."""
+    dxs, dys = _band_offsets()
+    assert dxs.shape == (257 * 129, 100)
+    route, (order, starts) = encoded_route(torch.uint8, 100, dys)
+    assert route == "grouped"
+    sizes = np.diff(np.append(starts, len(order)))
+    assert len(starts) == 4145 and (sizes == 1).sum() == 1 and (sizes == 8).sum() == 4144
+    st = k5_staging(dxs, dys, 0, 0, (order, starts))
+    share = st["share"]
+    assert share["steps_own"] == 100 and share["steps_shared"] == 4144 * 100
+    assert 6.0 < share["pixels_read"] / share["pixels_staged"] < 7.0
+    assert st["ext_elems"] == 2 * share["elems_shared"] == 2 * st["buf_elems"]
+    assert 2 * (st["smem_bytes"] + 1024) <= 233472
+
+
+def test_wide_column_spread_steps_go_per_member():
+    """Members 300 columns apart (one slab each) keep the per-member
+    extraction, and the prepared buffers hold their windows' copies."""
+    dxs, dys = _offsets(40, 8, seed=44, vmax=2.0)
+    dxs += 300 * np.arange(40, dtype=dxs.dtype)[:, None]
+    plan = search_plan.grouped_plan(dys)[0]
+    st = k5_staging(dxs, dys, 0, 0, plan)
+    share = st["share"]
+    assert (st["lay"][..., 0] > 1).all()
+    assert share["steps_shared"] == 0 and share["steps_own"] == st["lay"].shape[0] * 8
+    assert share["pixels_read"] < share["pixels_staged"]
+    assert st["ext_elems"] == share["elems_own"] == st["buf_elems"]

@@ -157,7 +157,7 @@ def test_staging_layout_and_shared_memory(staging):
         plan, _ = search_plan.grouped_plan(dys)
         st = k5_staging(dxs, dys, -5, 3, plan)
         order, starts = plan
-        rows, cols, chunk, extra, per_pixel, wide = K5_TILE_ROWS, K5_TILE_COLS, K5_CHUNK, 1, 2, 0
+        rows, cols, chunk, extra, per_pixel, wide = K5_TILE_ROWS, K5_TILE_COLS, K5_CHUNK, 0, 2, 0
     NG, T = len(starts), dys.shape[1]
     assert st["lay"].shape == (NG, T, 5) and st["off"].shape == (NG, T, 8)
     assert st["lay"].dtype == np.int32 and st["off"].dtype == np.int32
@@ -168,14 +168,17 @@ def test_staging_layout_and_shared_memory(staging):
     # A member's own slab bounds the buffer: 8 x rows x (cols + extra + chunk - 1), rounded up.
     assert buf_elems <= 8 * rows * (-(-(cols + extra + chunk - 1) // chunk) * chunk)
     assert search_plan.staging_header_bytes() == HEADER
-    assert st["smem_bytes"] == HEADER + 2 * per_pixel * buf_elems + wide
+    # K5 adds two prepared buffers (4 bytes a pixel of a prepared step, 2 of
+    # any other) and a thread's long phi sums and counts.
+    prepared = 2 * 2 * st["ext_elems"] + 8 * 2 * 512 * 4 if staging == "k5" else 0
+    assert st["smem_bytes"] == HEADER + 2 * per_pixel * buf_elems + prepared + wide
 
 
 def test_staging_caches_and_k5_counts_wide_sums():
     dxs, dys = _offsets(C=20, T=300, vx=2.0, vy=0.3)
     plan, _ = search_plan.grouped_plan(dys)
     st = k5_staging(dxs, dys, 0, 0, plan)
-    assert st["smem_bytes"] == HEADER + 4 * st["buf_elems"] + 8 * 4 * 512 * 4
+    assert st["smem_bytes"] == HEADER + 4 * st["buf_elems"] + 4 * st["ext_elems"] + 8 * 2 * 512 * 4 + 8 * 4 * 512 * 4
     assert k5_staging(dxs.copy(), dys.copy(), 0, 0, plan)["lay"] is st["lay"]
 
 
