@@ -6,7 +6,9 @@ unless the caller asks for the CPU. The coordinate grids stay host numpy in
 float64 (exact TAN math, ``compute_source_coordinates``), as does the
 stencil radius; the layer goes to the device once, the science and variance
 planes are resampled there with one set of weights, and only the outputs
-come back.
+come back. The copies to the device are traced as ``reproject.upload`` and
+counted in ``bytes.h2d``; each resampled image adds its stencil's taps to
+``reproject.taps``.
 
 - ``method="adaptive"`` (default): a DeForest-style Gaussian-footprint
   resample. Each output pixel's kernel is shaped by the local Jacobian of
@@ -30,6 +32,7 @@ import math
 import numpy as np
 import torch
 
+from kbmod_tpu_torch import tracing
 from kbmod_tpu_torch.device import resolve_device
 
 
@@ -237,14 +240,18 @@ def resample_layer(
         trunc = 0.5 * float(kernel_width) * float(sample_region_width)
         radius = _stencil_radius(src_coords, trunc)
 
-    planes = torch.from_numpy(np.stack([sci, var])).to(dev)
-    cy = torch.from_numpy(coords[0]).to(dev)
-    cx = torch.from_numpy(coords[1]).to(dev)
+    with tracing.span("reproject.upload"):
+        planes_h = np.stack([sci, var])
+        tracing.count("bytes.h2d", planes_h.nbytes + coords.nbytes)
+        planes = torch.from_numpy(planes_h).to(dev)
+        cy = torch.from_numpy(coords[0]).to(dev)
+        cx = torch.from_numpy(coords[1]).to(dev)
     ok = torch.isfinite(planes[0]) & torch.isfinite(planes[1])
     planes = torch.where(ok, planes, torch.zeros((), dtype=torch.float32, device=dev))
     val = ok.to(torch.float32)
     nan = torch.full((), float("nan"), dtype=torch.float32, device=dev)
 
+    tracing.count("reproject.taps", 4 if method == "bilinear" else (2 * radius + 1) ** 2)
     if method == "bilinear":
         out, foot = _bilinear_resample(planes, val, cy, cx)
         good = foot >= footprint_threshold

@@ -8,12 +8,23 @@ single layers (overlap collisions masked), with optional "ebd" frame
 ``device`` (kbmod_tpu_torch.ops.reproject; None means CUDA, "cpu" the host)
 one layer at a time, instead of a host process pool; the coordinates and
 the mosaic are host numpy.
+
+A reprojection is traced (``kbmod_tpu_torch.tracing``) in the span
+``reproject``, which holds ``reproject.ebd_fit`` (the EBD WCS fits) and one
+``reproject.layer`` per output layer; a layer holds ``reproject.coords``
+(each constituent's source coordinates), ``reproject.resample`` (its
+resampling, with the copies to the device in ``reproject.upload``) and
+``reproject.mosaic``. Counters: ``reproject.images`` (source images),
+``reproject.layers``, ``reproject.taps`` (stencil taps of each resampled
+image), ``reproject.collisions`` (pixels masked because two constituents
+cover them) and the resampling's copies in ``bytes.h2d``.
 """
 
 import logging
 
 import numpy as np
 
+from kbmod_tpu_torch import tracing
 from kbmod_tpu_torch.core.image_stack_py import ImageStackPy
 from kbmod_tpu_torch.device import resolve_device
 from kbmod_tpu_torch.ops.reproject import compute_source_coordinates, resample_layer
@@ -73,30 +84,44 @@ def reproject_work_unit(
         raise ValueError("Unable to reproject a reprojected WorkUnit.")
     if common_wcs.array_shape is None:
         raise ValueError("common_wcs must carry an array shape.")
-    height, width = common_wcs.array_shape
     device = resolve_device(device)
+    with tracing.span("reproject"):
+        result = _reproject(work_unit, common_wcs, frame, device)
+    if write_output:
+        if directory is None or filename is None:
+            raise ValueError("write_output requires directory and filename.")
+        result.to_sharded_fits(filename, directory, overwrite=True)
+        return None
+    return result
+
+
+def _reproject(work_unit, common_wcs, frame, device):
+    """The reprojected WorkUnit of ``reproject_work_unit``."""
+    height, width = common_wcs.array_shape
 
     stack = work_unit.im_stack
     obstimes = np.asarray(work_unit.get_all_obstimes())
     per_image_wcs = [work_unit.get_wcs(i) for i in range(stack.num_times)]
     if any(w is None for w in per_image_wcs):
         raise ValueError("Every image needs a WCS to reproject.")
+    tracing.count("reproject.images", stack.num_times)
 
     # In the EBD frame, source coordinates run through the fitted
     # barycentric WCSes instead of the original ones.
     if frame == "ebd":
         if work_unit.barycentric_distance is None:
             raise ValueError("barycentric_distance is required for EBD reprojection.")
-        src_wcs_list, geo_dists = transform_wcses_to_ebd(
-            per_image_wcs,
-            stack.width,
-            stack.height,
-            work_unit.barycentric_distance,
-            obstimes,
-            point_on_earth=work_unit.observatory,
-            npoints=10,
-            seed=101,
-        )
+        with tracing.span("reproject.ebd_fit"):
+            src_wcs_list, geo_dists = transform_wcses_to_ebd(
+                per_image_wcs,
+                stack.width,
+                stack.height,
+                work_unit.barycentric_distance,
+                obstimes,
+                point_on_earth=work_unit.observatory,
+                npoints=10,
+                seed=101,
+            )
         work_unit.org_img_meta["ebd_wcs"] = np.array(src_wcs_list, dtype=object)
         work_unit.org_img_meta["geocentric_distance"] = np.array(geo_dists, dtype=object)
     elif frame == "original":
@@ -108,23 +133,25 @@ def reproject_work_unit(
     from kbmod_tpu_torch.util_functions import unique_obstimes_and_indices
 
     unique_times, groups = unique_obstimes_and_indices(obstimes)
+    tracing.count("reproject.layers", len(groups))
 
     new_stack = ImageStackPy()
     per_image_indices = []
     for time, group in zip(unique_times, groups):
-        mosaic_sci, mosaic_var = _mosaic_group(
-            [stack.sci[idx] for idx in group],
-            [stack.var[idx] for idx in group],
-            [src_wcs_list[idx] for idx in group],
-            common_wcs,
-            (height, width),
-            device,
-        )
+        with tracing.span("reproject.layer"):
+            mosaic_sci, mosaic_var = _mosaic_group(
+                [stack.sci[idx] for idx in group],
+                [stack.var[idx] for idx in group],
+                [src_wcs_list[idx] for idx in group],
+                common_wcs,
+                (height, width),
+                device,
+            )
         psf = _get_combined_psf([stack.psfs[idx] for idx in group])
         new_stack.append_image(time, mosaic_sci, mosaic_var, psf=psf)
         per_image_indices.append(list(group))
 
-    result = WorkUnit(
+    return WorkUnit(
         im_stack=new_stack,
         config=work_unit.config,
         wcs=common_wcs,
@@ -137,31 +164,31 @@ def reproject_work_unit(
         observatory=work_unit.observatory,
     )
 
-    if write_output:
-        if directory is None or filename is None:
-            raise ValueError("write_output requires directory and filename.")
-        result.to_sharded_fits(filename, directory, overwrite=True)
-        return None
-    return result
-
 
 def _mosaic_group(sci_list, var_list, wcs_list, common_wcs, out_shape, device):
     """Reproject a group of same-obstime images onto ``common_wcs`` and
     mosaic them into one layer; pixels covered by more than one
     constituent (footprint collisions) are masked."""
     height, width = out_shape
-    mosaic_sci = np.full((height, width), np.nan, dtype=np.float32)
-    mosaic_var = np.full((height, width), np.nan, dtype=np.float32)
-    n_contrib = np.zeros((height, width), dtype=np.int32)
+    resampled = []
     for sci, var, src_wcs in zip(sci_list, var_list, wcs_list):
-        coords = compute_source_coordinates(src_wcs, common_wcs, (height, width))
-        sci_r, var_r, good = resample_layer(sci, var, coords, device=device)
-        mosaic_sci[good] = sci_r[good]
-        mosaic_var[good] = var_r[good]
-        n_contrib += good
-    collision = n_contrib > 1
-    mosaic_sci[collision] = np.nan
-    mosaic_var[collision] = np.nan
+        with tracing.span("reproject.coords"):
+            coords = compute_source_coordinates(src_wcs, common_wcs, (height, width))
+        with tracing.span("reproject.resample"):
+            resampled.append(resample_layer(sci, var, coords, device=device))
+    with tracing.span("reproject.mosaic"):
+        mosaic_sci = np.full((height, width), np.nan, dtype=np.float32)
+        mosaic_var = np.full((height, width), np.nan, dtype=np.float32)
+        n_contrib = np.zeros((height, width), dtype=np.int32)
+        for sci_r, var_r, good in resampled:
+            mosaic_sci[good] = sci_r[good]
+            mosaic_var[good] = var_r[good]
+            n_contrib += good
+        collision = n_contrib > 1
+        mosaic_sci[collision] = np.nan
+        mosaic_var[collision] = np.nan
+        if tracing.enabled():
+            tracing.count("reproject.collisions", int(np.count_nonzero(collision)))
     return mosaic_sci, mosaic_var
 
 

@@ -663,12 +663,15 @@ def append_positions_to_results(workunit, results):
             all_ra = ra
             all_dec = dec
         elif workunit.reprojected:
-            obstimes = workunit.get_all_obstimes()
+            # Each layer's own time: a mosaicked layer has several
+            # constituents, so the constituents' times do not line up with
+            # the layers.
+            layer_times = np.asarray(workunit.im_stack.times)
             for time_idx in range(num_times):
                 coords = SkyCoordLite(ra[:, time_idx], dec[:, time_idx])
                 coords.distance_au = np.full(num_results, workunit.barycentric_distance)
                 original = invert_correct_parallax_vectorized(
-                    coords, obstimes=obstimes[time_idx], point_on_earth=workunit.observatory
+                    coords, obstimes=layer_times[time_idx], point_on_earth=workunit.observatory
                 )
                 all_ra[:, time_idx] = original.ra_deg
                 all_dec[:, time_idx] = original.dec_deg

@@ -218,12 +218,14 @@ class WorkUnit:
         self.im_stack.filter_images(mask)
         if self.file_paths is not None:
             self.file_paths = [v for i, v in enumerate(self.file_paths) if mask[i]]
-        if self._obstimes is not None:
-            self._obstimes = [v for i, v in enumerate(self._obstimes) if mask[i]]
         keep_constituents = sorted({c for i, group in enumerate(self._per_image_indices) if mask[i] for c in group})
         remap = {old: new for new, old in enumerate(keep_constituents)}
         con_mask = np.zeros(self.n_constituents, dtype=bool)
         con_mask[keep_constituents] = True
+        if self._obstimes is not None:
+            # The obstimes are the constituents' (several to a mosaicked image).
+            keep = con_mask if len(self._obstimes) == self.n_constituents else mask
+            self._obstimes = [v for i, v in enumerate(self._obstimes) if keep[i]]
         self.org_img_meta = self.org_img_meta[con_mask]
         self.n_constituents = len(keep_constituents)
         self._per_image_indices = [
