@@ -27,11 +27,16 @@ reference's inverse parallax and that exposure's WCS.
 
 After the window each stage is judged against the plain reference
 (``benchmarks/reference/ebd.py``, ``judge.py``), given the stage before it
-as the program left it:
+as the program left it, on the host arrays the window searched:
 
+- ``observer_gap`` (arcsec): the program's barycentric observer positions
+  at the exposures' times (its ephemeris and site) against the
+  reference's, as the angle the difference turns a line of sight to a
+  point at the assumed distance.
 - ``ebd_wcs_gap`` (arcsec): every constituent's fitted EBD WCS (the WCS the
-  reprojection used) against the reference's correction of its own WCS,
-  at ``check["wcs_pixels"]`` seeded pixels of the CCD.
+  reprojection used) against the reference's correction of its own WCS
+  from the program's observer, at ``check["wcs_pixels"]`` seeded pixels of
+  the CCD.
 - ``layer_gap`` (noise sigmas) and ``mask_flips`` (pixels): every layer
   against the reference's resampling and mosaic through the program's EBD
   WCSes, at ``check["layer_pixels"]`` seeded pixels of the layer, half of
@@ -39,14 +44,20 @@ as the program left it:
   layer over the noise's sigma and of the variance over its level, and the
   pixels masked in one and not in the other.
 - the stack search's numbers (``stack_search``, ``judge.py``) on the
-  program's layers.
+  program's layers, but ``missed``: the objects that the reference's
+  results path (``reference_rows``: near-duplicates, its own sigma-G and
+  filters, DBSCAN) keeps a row for from the search's listed rows, and no
+  final row of the program represents. At KBMOD's eps of 20 the DBSCAN
+  chains objects through their one-night trajectories, so which objects
+  a final row can represent is the reference's to say.
 - ``position_gap`` (arcsec): every final row's ``global_ra``/``global_dec``
   and ``img_ra``/``img_dec`` at every time against the reference's common
-  WCS and its inverse parallax.
+  WCS and its inverse parallax from the program's observer.
 
 The control is the reference one precision below the configuration's
-float64 geometry and float32 planes: float32 coordinates and bfloat16
-planes (the stack search's control for its numbers).
+float64 geometry and float32 planes: float32 coordinates, times and
+observer positions, and bfloat16 planes (the stack search's control for
+its numbers).
 """
 
 import math
@@ -59,12 +70,13 @@ import torch
 from benchmarks import generator
 from benchmarks.loops import stack_search
 from benchmarks.loops.ebd_search_faults import CELL_SIZE_FAULTS, FAULTS  # noqa: F401 (the loop's faults)
-from benchmarks.reference import ebd, judge
+from benchmarks.reference import core, ebd, judge
 
 NUMBERS = ("ebd_wcs_gap", "layer_gap", "mask_flips", "search_lh_gap", "search_rank_gap", "rescore_gap", "obs_flips",
-           "coadd_gap", "violations", "missed", "position_gap")
+           "coadd_gap", "violations", "missed", "position_gap", "observer_gap")
 POSITION_COLUMNS = ("global_ra", "global_dec", "img_ra", "img_dec")
 STAMP_RADIUS = 5  # planted stamps: a Gaussian of the PSF's sigma over (2 r + 1)^2 pixels
+ROWS_CHUNK = 1 << 16  # listed rows whose curves the reference gathers at once
 
 
 @dataclass
@@ -182,40 +194,12 @@ def plant(sci, exposures, traffic, objects):
             img[ys0:ye, xs0:xe] += stamp[ys0 - y0:ye - y0, xs0 - x0:xe - x0]
 
 
-def place_objects(rng, spec, height, width, span):
-    """Objects (x, y, vx, vy, flux) in the common frame whose paths stay
-    ``margin`` pixels inside the patch over the span, each at least
-    ``min_separation`` from every other in the clustering's space (x, y, vx,
-    vy) of ``cluster_type`` all, so no two can be clustered together. Tiers
-    are filled in order."""
-    margin, min_sep = float(spec["margin"]), float(spec["min_separation"])
-    (lo, hi), (a_lo, a_hi) = spec["speed"], spec["angle"]
-    fluxes = [float(flux) for count, flux in spec["tiers"] for _ in range(int(count))]
-    objects = []
-    for _ in range(1000 * len(fluxes)):
-        if len(objects) == len(fluxes):
-            break
-        speed, ang = rng.uniform(lo, hi), rng.uniform(a_lo, a_hi)
-        vx, vy = speed * math.cos(ang), speed * math.sin(ang)
-        x_lo, x_hi = margin + max(0.0, -vx * span), width - margin - max(0.0, vx * span)
-        y_lo, y_hi = margin + max(0.0, -vy * span), height - margin - max(0.0, vy * span)
-        if x_lo >= x_hi or y_lo >= y_hi:
-            continue
-        p = (rng.uniform(x_lo, x_hi), rng.uniform(y_lo, y_hi), vx, vy)
-        if any(math.dist(p, o[:4]) < min_sep for o in objects):
-            continue
-        objects.append((float(p[0]), float(p[1]), float(vx), float(vy), fluxes[len(objects)]))
-    if len(objects) != len(fluxes):
-        raise ValueError(f"could not place {len(fluxes)} objects in a {height} x {width} patch")
-    return objects
-
-
 def unit_objects(traffic, seed, index):
     """The objects of distinct WorkUnit ``index``."""
     spec = traffic["stack"]
     span = float(np.ptp(generator.exposure_times(spec["times"])))
-    return place_objects(_unit_rng(seed, 2 * index + 1), traffic["objects"]["random"], int(spec["height"]),
-                         int(spec["width"]), span)
+    return generator.random_objects(_unit_rng(seed, 2 * index + 1), traffic["objects"]["random"], int(spec["height"]),
+                                    int(spec["width"]), span)
 
 
 def make_unit(traffic, seed, index, device, exposures=None):
@@ -255,7 +239,8 @@ class EbdSearchCell(stack_search.StackSearchCell):
         super().__init__(cell, config, traffic, seed, device, traced=traced)
         self.distance = float(traffic["field"]["distance_au"])
         self.site_m = tuple(float(v) * ebd.AU_M for v in site(traffic))
-        self._judged = {}
+        self.units = None
+        self._expected = {}
         if (int(config["patch_rows"]), int(config["patch_columns"])) != (int(traffic["stack"]["height"]),
                                                                          int(traffic["stack"]["width"])):
             raise ValueError("the traffic's patch is not the configuration's")
@@ -312,6 +297,7 @@ class EbdSearchCell(stack_search.StackSearchCell):
     def setup(self, warm=True):
         self.stacks = [make_unit(self.traffic, self.seed, i, self.device)
                        for i in range(int(self.traffic.get("distinct_stacks", 1)))]
+        self.units = self.stacks
         env = self.config.get("environment", {})
         self._env_before = {k: os.environ.get(k) for k in env}
         os.environ.update({k: str(v) for k, v in env.items()})
@@ -329,42 +315,75 @@ class EbdSearchCell(stack_search.StackSearchCell):
         return out
 
     # --- the judgement ---
+    # The judge reads the host arrays the window searched (``units``, kept
+    # past ``release``): the program reads its inputs and writes new arrays.
 
     def reference_stacks(self, **precision):
         """Per distinct WorkUnit: the stack judge's reference on the program's
         layers (those of the first window record of that WorkUnit), or None
         where the window ran none."""
         refs = []
-        for u in range(int(self.traffic.get("distinct_stacks", 1))):
+        for u, unit in enumerate(self.units):
             rec = next((r for r in self.records if r["stack"] == u), None)
             if rec is None:
                 refs.append(None)
                 continue
             sci, var, times, psfs = rec["searched"]
-            objects = unit_objects(self.traffic, self.seed, u)
-            stack = generator.Stack(times=times, sci=np.stack(sci), var=var, psfs=psfs, objects=objects)
+            stack = generator.Stack(times=times, sci=np.stack(sci), var=var, psfs=psfs, objects=unit.objects)
             refs.append(judge.ReferenceStack(stack, self.settings, self.grid, self.device, **precision))
         return refs
 
     def numbers(self, refs, lists=None, finals=None, low=False):
         """Every compared number of the window's records against ``refs``;
         with ``low`` (and the control's ``lists`` and ``finals``) the
-        control's answers in the program's place at every stage."""
+        control's answers in the program's place at every stage. ``missed``
+        counts the objects that the reference's results path finds from the
+        search's listed rows (``reference_rows``) and no final row
+        represents."""
         out = super().numbers(refs, lists=lists, finals=finals)
+        missed = 0
+        for i, rec in enumerate(self.records):
+            ref = refs[rec["stack"]]
+            if i not in self._expected:
+                kept = reference_rows(ref, rec.get("raw"), self.settings)
+                self._expected[i] = [o for o in ref.objects
+                                     if judge.missed_objects(kept, [o], self.settings, ref.zeroed) == 0]
+            rows = rec["final"] if finals is None else finals[i]
+            missed = max(missed, judge.missed_objects(rows, self._expected[i], self.settings, ref.zeroed))
+        out["missed"] = missed
         out.update(self.stage_numbers(low=low))
         return out
 
+    def observers(self, times):
+        """(program, reference) barycentric observer positions (N, 3) in AU at
+        the MJDs: the program's from its own ephemeris and site, as its
+        reprojection and positions take them."""
+        from kbmod_tpu_torch import reprojection_utils
+
+        times = np.asarray(times, dtype=np.float64)
+        program = torch.as_tensor(reprojection_utils.observer_position_equatorial(times, self.site_m),
+                                  dtype=ebd.F64, device=self.device).reshape(len(times), 3)
+        return program, ebd.observer(torch.as_tensor(times), site(self.traffic)).to(self.device)
+
     def stage_numbers(self, low=False):
-        """ebd_wcs_gap, layer_gap, mask_flips and position_gap of the
-        window's records, the program's (or with ``low`` the control's)."""
-        out = {"ebd_wcs_gap": 0.0, "layer_gap": 0.0, "mask_flips": 0, "position_gap": 0.0}
+        """ebd_wcs_gap, layer_gap, mask_flips, position_gap and observer_gap
+        of the window's records, the program's (or with ``low`` the
+        control's). The EBD WCSes and the positions are judged given the
+        program's observer, which ``observer_gap`` judges against the
+        reference's."""
+        out = {"ebd_wcs_gap": 0.0, "layer_gap": 0.0, "mask_flips": 0, "position_gap": 0.0, "observer_gap": 0.0}
         dev = self.device
         rng = np.random.default_rng(self.seed)
         for u in sorted({r["stack"] for r in self.records}):
             recs = [r for r in self.records if r["stack"] == u]
-            if u not in self._judged:  # the reference remakes each WorkUnit's CCDs once
-                self._judged[u] = make_unit(self.traffic, self.seed, u, dev)
-            unit = self._judged[u]
+            unit = self.units[u]
+            seen_from, truth = self.observers([e.time for e in unit.exposures])
+            if low:
+                got = ebd.observer(torch.as_tensor([e.time for e in unit.exposures], dtype=torch.float32),
+                                   site(self.traffic).to(torch.float32), torch.float32).to(dev, ebd.F64)
+            else:
+                got = seen_from
+            out["observer_gap"] = max(out["observer_gap"], self.observer_gap(got, truth))
             picks = [sample_layer_pixels(rec["layers"][0], int(self.traffic["check"]["layer_pixels"]), rng)
                      for rec in recs]
             per_layer = [[[] for _ in rec["layers"][0]] for rec in recs]
@@ -373,7 +392,7 @@ class EbdSearchCell(stack_search.StackSearchCell):
                 var = torch.as_tensor(unit.var[i], device=dev)
                 wx, wy = sample_ccd_pixels(sci.shape, int(self.traffic["check"]["wcs_pixels"]), rng)
                 for k, rec in enumerate(recs):
-                    gap = self.wcs_gap(e, rec["ebd_wcs"][i], wx, wy, low)
+                    gap = self.wcs_gap(e, rec["ebd_wcs"][i], wx, wy, seen_from[i], low)
                     out["ebd_wcs_gap"] = max(out["ebd_wcs_gap"], gap)
                     layer = next(l for l, g in enumerate(rec["layers"][4]) if i in g)
                     ys, xs = picks[k][layer]
@@ -386,16 +405,23 @@ class EbdSearchCell(stack_search.StackSearchCell):
                 out["position_gap"] = max(out["position_gap"], self.position_gap(rec, low))
         return out
 
-    def wcs_gap(self, exposure, fitted, xs, ys, low):
+    def observer_gap(self, got, want):
+        """The largest angle, in arcsec, by which an observer at ``got`` in
+        place of ``want`` turns the line of sight to a point at the assumed
+        distance: |got - want| / distance."""
+        return float(torch.linalg.vector_norm(got - want, dim=-1).max()) / self.distance * ebd.ARCSEC_PER_RAD
+
+    def wcs_gap(self, exposure, fitted, xs, ys, seen_from, low):
         """The largest angle, in arcsec, between the fitted WCS's direction
-        and the reference's corrected direction at the pixels (the control's
-        corrected direction in float32 in the fitted WCS's place)."""
+        and the reference's correction of the original WCS's direction from
+        the program's observer ``seen_from`` at the pixels (the control's
+        correction in float32 in the fitted WCS's place)."""
         original = ebd.Tan(exposure.crpix, exposure.crval, exposure.cd, device=self.device)
-        want = ebd.correct(original.pixel_to_vec(xs, ys), exposure.time, self.distance, site(self.traffic))
+        want = ebd.correct(original.pixel_to_vec(xs, ys), exposure.time, self.distance, observer_au=seen_from)
         if low:
             f32 = torch.float32
             o32 = ebd.Tan(exposure.crpix, exposure.crval, exposure.cd, f32, self.device)
-            got = ebd.correct(o32.pixel_to_vec(xs, ys), exposure.time, self.distance, site(self.traffic).to(f32))
+            got = ebd.correct(o32.pixel_to_vec(xs, ys), exposure.time, self.distance, observer_au=seen_from.to(f32))
         else:
             got = ebd.Tan(*fitted, device=self.device).pixel_to_vec(xs, ys)
         return float(ebd.separation_arcsec(got.to(ebd.F64), want).max())
@@ -443,9 +469,10 @@ class EbdSearchCell(stack_search.StackSearchCell):
     def position_gap(self, rec, low):
         """The largest angle, in arcsec, between the program's positions of
         its final rows (``global_*`` in the common frame, ``img_*`` as seen
-        from the site) and the reference's; the control's in float32 with
-        ``low``. A missing ``img_*`` column reads as the ``global_*`` one, a
-        missing ``global_*`` column as the largest gap, 180 degrees."""
+        from the site) and the reference's, from the program's observer at
+        each layer's time; the control's in float32 with ``low``. A missing
+        ``img_*`` column reads as the ``global_*`` one, a missing
+        ``global_*`` column as the largest gap, 180 degrees."""
         rows, pos = rec["final"], rec["positions"]
         if len(rows["x"]) == 0:
             return 0.0
@@ -453,13 +480,13 @@ class EbdSearchCell(stack_search.StackSearchCell):
             return 648000.0
         times = rec["searched"][2]
         z = torch.as_tensor(times - times[0], dtype=ebd.F64, device=self.device)
+        seen_from, _ = self.observers(times)
 
         def at(dtype):
             common = common_tan(self.traffic, dtype, self.device)
             col = lambda k: torch.as_tensor(np.asarray(rows[k], np.float64), device=self.device).to(dtype)[:, None]
             glob = common.pixel_to_vec(col("x") + col("vx") * z.to(dtype), col("y") + col("vy") * z.to(dtype))
-            tt = torch.as_tensor(times, dtype=dtype, device=self.device).expand(glob.shape[:-1])
-            seen = ebd.invert(glob, tt, self.distance, site(self.traffic).to(dtype))
+            seen = ebd.invert(glob, times, self.distance, observer_au=seen_from.to(dtype).expand(glob.shape))
             return glob.to(ebd.F64), seen.to(ebd.F64)
 
         def vec(ra, dec):
@@ -476,6 +503,81 @@ class EbdSearchCell(stack_search.StackSearchCell):
 
 
 Cell = EbdSearchCell
+
+
+def reference_rows(ref, raw, settings):
+    """The final rows (x, y, vx, vy, likelihood) that the results path keeps
+    of the search's listed rows ``raw`` (best first), by the reference:
+    the best listed row of each near-duplicate bin (start and end positions
+    binned by ``near_dup_thresh``), then the reference's sigma-G over its
+    own curves, ``num_obs`` and ``lh_level``, then the clustering: DBSCAN
+    with min_samples 1 (the connected components of the rows within
+    ``cluster_eps`` of each other in the clustering's space, ``all``/
+    ``pos_vel`` only), the best row of each. None of the program's answers
+    below the listed rows is used."""
+    keys = ("x", "y", "vx", "vy")
+    if raw is None or len(raw["x"]) == 0:
+        return {k: np.zeros(0) for k in keys + ("likelihood",)}
+    rows = {k: np.asarray(raw[k]) for k in keys}
+    lh = np.asarray(raw["lh"], dtype=np.float64)
+    thresh = settings.get("near_dup_thresh", 10)
+    if thresh and thresh > 0:
+        x, y = rows["x"].astype(np.float64), rows["y"].astype(np.float64)
+        bins = judge._bins(x, y, rows["vx"].astype(np.float64), rows["vy"].astype(np.float64), float(thresh),
+                           float(ref.zeroed[-1] - ref.zeroed[0]))
+        order = np.lexsort((np.arange(len(lh)), -lh, bins[:, 3], bins[:, 2], bins[:, 1], bins[:, 0]))
+        first = np.ones(len(order), dtype=bool)
+        first[1:] = np.any(bins[order[1:]] != bins[order[:-1]], axis=1)
+        pick = np.sort(order[first])
+        rows = {k: v[pick] for k, v in rows.items()}
+    keep, score = [], []
+    for lo in range(0, len(rows["x"]), ROWS_CHUNK):
+        part = {k: v[lo:lo + ROWS_CHUNK] for k, v in rows.items()}
+        pv, fv, _ = ref.row_curves(part)
+        kept = core.host_clip(pv, fv, settings)
+        lh_kept, _ = judge.kept_scores(pv, fv, kept)
+        ok = kept.sum(1).cpu().numpy() >= int(settings["num_obs"])
+        if float(settings["lh_level"]) > 0:
+            ok &= lh_kept >= float(settings["lh_level"])
+        keep.append(np.flatnonzero(ok) + lo)
+        score.append(lh_kept[ok])
+    pick = np.concatenate(keep)
+    rows = {k: v[pick] for k, v in rows.items()}
+    rows["likelihood"] = np.concatenate(score)
+    if not settings.get("do_clustering", True) or len(pick) < 2:
+        return rows
+    if settings.get("cluster_type", "all") not in ("all", "pos_vel"):
+        raise ValueError("reference_rows clusters in the position and velocity space only")
+    labels = components(judge.cluster_points(rows, settings, ref.zeroed), float(settings.get("cluster_eps", 20.0)),
+                        ref.device)
+    best = np.lexsort((np.arange(len(labels)), -rows["likelihood"], labels))
+    first = np.ones(len(best), dtype=bool)
+    first[1:] = labels[best[1:]] != labels[best[:-1]]
+    return {k: v[best[first]] for k, v in rows.items()}
+
+
+def components(points, eps, device):
+    """Labels of the connected components of the (N, D) float64 points
+    joined where they lie within ``eps`` of each other (Euclidean): each
+    point's label is the smallest index in its component."""
+    p = torch.as_tensor(points, dtype=ebd.F64, device=device)
+    n = len(p)
+    chunk = max(256, (1 << 27) // max(n, 1))  # a chunk's distances in 1 GiB
+    labels = torch.arange(n, device=device)
+    while True:
+        low = labels.clone()
+        for lo in range(0, n, chunk):
+            near = torch.cdist(p[lo:lo + chunk], p, compute_mode="donot_use_mm_for_euclid_dist") <= eps
+            low[lo:lo + chunk] = torch.where(near, labels[None, :], n).amin(1)
+        low = low.scatter_reduce(0, labels, low.clone(), reduce="amin")  # a label's point takes its members' least
+        while True:
+            hop = low[low]
+            if torch.equal(hop, low):
+                break
+            low = hop
+        if torch.equal(low, labels):
+            return labels.cpu().numpy()
+        labels = low
 
 
 def sample_layer_pixels(layers, n, rng):

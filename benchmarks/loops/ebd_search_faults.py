@@ -3,9 +3,13 @@ program underneath a run for the check that ``correct`` comes out false
 (``benchmarks/faults.py`` plants them; ``ebd_search`` names them as its
 ``FAULTS`` and ``CELL_SIZE_FAULTS``). Each takes an object with
 ``setattr(target, name, value)``, as pytest's monkeypatch fixture is.
+The stack search's faults are the loop's too: the cell runs the same
+search and results path after its reprojection.
 """
 
 import numpy as np
+
+from benchmarks.loops import stack_search_faults
 
 
 def _frame_original(monkeypatch):
@@ -63,10 +67,50 @@ def _coordinates_shifted(monkeypatch):
     monkeypatch.setattr(reprojection, "compute_source_coordinates", faulty)
 
 
-FAULTS = {
+def _fit_shifted(monkeypatch):
+    """Every fitted EBD WCS is one pixel off in x."""
+    from kbmod_tpu_torch import reprojection
+    from kbmod_tpu_torch.geom.wcs import WCS
+
+    fit = reprojection.transform_wcses_to_ebd
+
+    def faulty(*args, **kwargs):
+        wcses, dists = fit(*args, **kwargs)
+        return [WCS(w.crpix + np.array([1.0, 0.0]), w.crval, w.cd, shape=w.array_shape) for w in wcses], dists
+
+    monkeypatch.setattr(reprojection, "transform_wcses_to_ebd", faulty)
+
+
+def _positions_shifted(monkeypatch):
+    """The results' per-image positions are one pixel (0.263 arcsec) off in
+    declination."""
+    from kbmod_tpu_torch import reprojection_utils
+    from kbmod_tpu_torch.geom.wcs import SkyCoordLite
+
+    invert = reprojection_utils.invert_correct_parallax_vectorized
+
+    def faulty(coords, obstimes, point_on_earth=None):
+        out = invert(coords, obstimes, point_on_earth)
+        return SkyCoordLite(np.asarray(out.ra_deg), np.asarray(out.dec_deg) + 0.263 / 3600.0)
+
+    monkeypatch.setattr(reprojection_utils, "invert_correct_parallax_vectorized", faulty)
+
+
+def _observer_heliocentric(monkeypatch):
+    """The observer is placed from the Sun, not from the barycentre: the
+    Sun's barycentric offset is left out."""
+    from kbmod_tpu_torch.geom import ecliptic
+
+    monkeypatch.setattr(ecliptic, "sun_barycentric_position", lambda mjd: np.zeros(np.shape(mjd) + (3,)))
+
+
+FAULTS = dict(stack_search_faults.FAULTS, **{
     "frame original": _frame_original,
     "positions not inverted": _positions_not_inverted,
     "overlaps not masked": _overlaps_not_masked,
     "coordinates shifted by half a pixel": _coordinates_shifted,
-}
-CELL_SIZE_FAULTS = {}
+    "EBD fit shifted by one pixel": _fit_shifted,
+    "positions shifted by one pixel": _positions_shifted,
+    "observer from the Sun": _observer_heliocentric,
+})
+CELL_SIZE_FAULTS = dict(stack_search_faults.CELL_SIZE_FAULTS)

@@ -11,18 +11,21 @@ published descriptions, with no code or state of the program.
   e_dec of a sky direction p, (xi, eta) = (p . e_ra, p . e_dec) / (p . e0),
   and (xi, eta) = CD (x + 1 - CRPIX1, y + 1 - CRPIX2).
 - ``earth``: the Earth's position from the solar system's barycentre, J2000
-  equatorial, in AU: the Earth-Moon barycentre on its heliocentric
-  Keplerian orbit (Standish, "Keplerian Elements for Approximate Positions
-  of the Major Planets", JPL, Table 1, 1800-2050, elements with their
-  rates), less the Moon's share of the Earth-Moon vector (the Moon from the
-  main periodic terms of Meeus 1998, Astronomical Algorithms ch. 47), plus
-  the Sun's offset from the barycentre by the Earth-Moon barycentre and the
-  four giant planets of the same table, weighted by their masses; ecliptic
-  to equator by the IAU 2006 obliquity. MJDs are UTC, taken to TT by TT -
-  UTC = 69.184 s (the leap seconds since 2017).
-  Departures: the Keplerian orbits leave out the planets' pulls on one
-  another (the Earth's longitude off by up to about 20 arcseconds), the
-  inner planets' pull on the Sun (under 2e-6 AU) and TDB - TT (2 ms).
+  equatorial, in AU: the Earth's centre from the Sun by VSOP87 (Bretagnon &
+  Francou 1988) as abridged in Meeus 1998, Astronomical Algorithms,
+  Appendix III (the series L, B and R of the Earth, in the dynamical
+  ecliptic and equinox of date), turned to the mean equator of date by the
+  IAU 1976 obliquity of date and precessed to J2000 (Lieske 1977); plus the
+  Sun's offset from the barycentre by the Earth and the four giant planets,
+  weighted by their masses, the giants on Keplerian orbits (Standish,
+  "Keplerian Elements for Approximate Positions of the Major Planets", JPL,
+  Table 1, 1800-2050, elements with their rates). MJDs are UTC, taken to
+  TT by TT - UTC = 69.184 s (the leap seconds since 2017).
+  Departures: the abridged series leave out terms under about 25e-8 (in
+  radians of longitude and AU of distance; about 1 arcsecond, or 5e-6 AU,
+  in all), the FK5 correction of VSOP87 (0.09 arcseconds), the giants'
+  pulls on one another (the Sun's offset off by about 1e-5 AU), the inner
+  planets' pull on the Sun (under 2e-6 AU) and TDB - TT (2 ms).
 - ``observer``: the Earth plus the site, WGS84 geodetic to geocentric,
   turned by the Greenwich mean sidereal time (IAU 1982, UT1 taken as UTC)
   and precessed from the mean equator of date to J2000 (Lieske 1977);
@@ -32,9 +35,10 @@ published descriptions, with no code or state of the program.
   an observed direction u from the observer at E meets the sphere |P| = d at
   P = E + s u, s = -E.u + sqrt((E.u)^2 + d^2 - |E|^2), and the corrected
   direction is P's. The inverse takes P = d u to the direction of P - E.
+  Either takes the observer's positions as data in place of ``observer``'s.
 - The EBD WCS fit: a WCS fitted to an image in the EBD frame is right at a
   pixel where it maps the pixel to the corrected direction of where the
-  image's own WCS maps it (``ebd_gap_arcsec``). The reference fits none.
+  image's own WCS maps it (``correct``). The reference fits none.
 - ``resample``: DeForest's (2004) adaptive resampling (astropy reproject's
   ``reproject_adaptive``): an output pixel at source position c with
   Jacobian J (source over output pixels, central differences of half a
@@ -69,8 +73,6 @@ FOOTPRINT_THRESHOLD = 0.999
 # Standish, Table 1 (1800-2050): a (AU), e, I, L, longitude of perihelion,
 # longitude of the ascending node (degrees), each with its rate a century.
 ELEMENTS = {
-    "emb": ((1.00000261, 0.00000562), (0.01671123, -0.00004392), (-0.00001531, -0.01294668),
-            (100.46457166, 35999.37244981), (102.93768193, 0.32327364), (0.0, 0.0)),
     "jupiter": ((5.20288700, -0.00011607), (0.04838624, -0.00013253), (1.30439695, -0.00183714),
                 (34.39644051, 3034.74612775), (14.72847983, 0.21252668), (100.47390909, 0.20469106)),
     "saturn": ((9.53667594, -0.00125060), (0.05386179, -0.00050991), (2.48599187, 0.00193609),
@@ -80,11 +82,68 @@ ELEMENTS = {
     "neptune": ((30.06992276, 0.00026291), (0.00859048, 0.00005105), (1.77004347, 0.00035372),
                 (-55.12002969, 218.45945325), (44.96476227, -0.32241464), (131.78422574, -0.00508664)),
 }
-# Masses in solar masses (IAU 2009 ratios); the Moon's share of the
-# Earth-Moon mass.
-MASSES = {"emb": 1.0 / 328900.56, "jupiter": 1.0 / 1047.348644, "saturn": 1.0 / 3497.9018,
+# Masses in solar masses (IAU 2009 ratios); the Earth's alone.
+MASSES = {"earth": 3.00348959632e-6, "jupiter": 1.0 / 1047.348644, "saturn": 1.0 / 3497.9018,
           "uranus": 1.0 / 22902.98, "neptune": 1.0 / 19412.26}
-MOON_SHARE = 1.0 / (1.0 + 81.30056)
+# VSOP87D of the Earth, abridged (Meeus, Appendix III): per series, per
+# power of tau (Julian millennia from J2000), terms (A, B, C) of A cos(B +
+# C tau), in 1e-8 radians (L, B) or 1e-8 AU (R).
+VSOP_L = (
+    ((175347046, 0, 0), (3341656, 4.6692568, 6283.0758500), (34894, 4.62610, 12566.15170),
+     (3497, 2.7441, 5753.3849), (3418, 2.8289, 3.5231), (3136, 3.6277, 77713.7715), (2676, 4.4181, 7860.4194),
+     (2343, 6.1352, 3930.2097), (1324, 0.7425, 11506.7698), (1273, 2.0371, 529.6910), (1199, 1.1096, 1577.3435),
+     (990, 5.233, 5884.927), (902, 2.045, 26.298), (857, 3.508, 398.149), (780, 1.179, 5223.694),
+     (753, 2.533, 5507.553), (505, 4.583, 18849.228), (492, 4.205, 775.523), (357, 2.920, 0.067),
+     (317, 5.849, 11790.629), (284, 1.899, 796.298), (271, 0.315, 10977.079), (243, 0.345, 5486.778),
+     (206, 4.806, 2544.314), (205, 1.869, 5573.143), (202, 2.458, 6069.777), (156, 0.833, 213.299),
+     (132, 3.411, 2942.463), (126, 1.083, 20.775), (115, 0.645, 0.980), (103, 0.636, 4694.003),
+     (102, 0.976, 15720.839), (102, 4.267, 7.114), (99, 6.21, 2146.17), (98, 0.68, 155.42), (86, 5.98, 161000.69),
+     (85, 1.30, 6275.96), (85, 3.67, 71430.70), (80, 1.81, 17260.15), (79, 3.04, 12036.46), (75, 1.76, 5088.63),
+     (74, 3.50, 3154.69), (74, 4.68, 801.82), (70, 0.83, 9437.76), (62, 3.98, 8827.39), (61, 1.82, 7084.90),
+     (57, 2.78, 6286.60), (56, 4.39, 14143.50), (56, 3.47, 6279.55), (52, 0.19, 12139.55), (52, 1.33, 1748.02),
+     (51, 0.28, 5856.48), (49, 0.49, 1194.45), (41, 5.37, 8429.24), (41, 2.40, 19651.05), (39, 6.17, 10447.39),
+     (37, 6.04, 10213.29), (37, 2.57, 1059.38), (36, 1.71, 2352.87), (36, 1.78, 6812.77), (33, 0.59, 17789.85),
+     (30, 0.44, 83996.85), (30, 2.74, 1349.87), (25, 3.16, 4690.48)),
+    ((628331966747, 0, 0), (206059, 2.678235, 6283.075850), (4303, 2.6351, 12566.1517), (425, 1.590, 3.523),
+     (119, 5.796, 26.298), (109, 2.966, 1577.344), (93, 2.59, 18849.23), (72, 1.14, 529.69), (68, 1.87, 398.15),
+     (67, 4.41, 5507.55), (59, 2.89, 5223.69), (56, 2.17, 155.42), (45, 0.40, 796.30), (36, 0.47, 775.52),
+     (29, 2.65, 7.11), (21, 5.34, 0.98), (19, 1.85, 5486.78), (19, 4.97, 213.30), (17, 2.99, 6275.96),
+     (16, 0.03, 2544.31), (16, 1.43, 2146.17), (15, 1.21, 10977.08), (12, 2.83, 1748.02), (12, 3.26, 5088.63),
+     (12, 5.27, 1194.45), (12, 2.08, 4694.00), (11, 0.77, 553.57), (10, 1.30, 6286.60), (10, 4.24, 1349.87),
+     (9, 2.70, 242.73), (9, 5.64, 951.72), (8, 5.30, 2352.87), (6, 2.65, 9437.76), (6, 4.67, 4690.48)),
+    ((52919, 0, 0), (8720, 1.0721, 6283.0758), (309, 0.867, 12566.152), (27, 0.05, 3.52), (16, 5.19, 26.30),
+     (16, 3.68, 155.42), (10, 0.76, 18849.23), (9, 2.06, 77713.77), (7, 0.83, 775.52), (5, 4.66, 1577.34),
+     (4, 1.03, 7.11), (4, 3.44, 5573.14), (3, 5.14, 796.30), (3, 6.05, 5507.55), (3, 1.19, 242.73),
+     (3, 6.12, 529.69), (3, 0.31, 398.15), (3, 2.28, 553.57), (2, 4.38, 5223.69), (2, 3.75, 0.98)),
+    ((289, 5.844, 6283.076), (35, 0, 0), (17, 5.49, 12566.15), (3, 5.20, 155.42), (1, 4.72, 3.52),
+     (1, 5.30, 18849.23), (1, 5.97, 242.73)),
+    ((114, 3.142, 0), (8, 4.13, 6283.08), (1, 3.84, 12566.15)),
+    ((1, 3.14, 0),),
+)
+VSOP_B = (
+    ((280, 3.199, 84334.662), (102, 5.422, 5507.553), (80, 3.88, 5223.69), (44, 3.70, 2352.87),
+     (32, 4.00, 1577.34)),
+    ((9, 3.90, 5507.55), (6, 1.73, 5223.69)),
+)
+VSOP_R = (
+    ((100013989, 0, 0), (1670700, 3.0984635, 6283.0758500), (13956, 3.05525, 12566.15170),
+     (3084, 5.1985, 77713.7715), (1628, 1.1739, 5753.3849), (1576, 2.8469, 7860.4194), (925, 5.453, 11506.770),
+     (542, 4.564, 3930.210), (472, 3.661, 5884.927), (346, 0.964, 5507.553), (329, 5.900, 5223.694),
+     (307, 0.299, 5573.143), (243, 4.273, 11790.629), (212, 5.847, 1577.344), (186, 5.022, 10977.079),
+     (175, 3.012, 18849.228), (110, 5.055, 5486.778), (98, 0.89, 6069.78), (86, 5.69, 15720.84),
+     (86, 1.27, 161000.69), (65, 0.27, 17260.15), (63, 0.92, 529.69), (57, 2.01, 83996.85), (56, 5.24, 71430.70),
+     (49, 3.25, 2544.31), (47, 2.58, 775.52), (45, 5.54, 9437.76), (43, 6.01, 6275.96), (39, 5.36, 4694.00),
+     (38, 2.39, 8827.39), (37, 0.83, 19651.05), (37, 4.90, 12139.55), (36, 1.67, 12036.46), (35, 1.84, 2942.46),
+     (33, 0.24, 7084.90), (32, 0.18, 5088.63), (32, 1.78, 398.15), (28, 1.21, 6286.60), (28, 1.90, 6279.55),
+     (26, 4.59, 10447.39)),
+    ((103019, 1.107490, 6283.075850), (1721, 1.0644, 12566.1517), (702, 3.142, 0), (32, 1.02, 18849.23),
+     (31, 2.84, 5507.55), (25, 1.32, 5223.69), (18, 1.42, 1577.34), (10, 5.91, 10977.08), (9, 1.42, 6275.96),
+     (9, 0.27, 5486.78)),
+    ((4359, 5.7846, 6283.0758), (124, 5.579, 12566.152), (12, 3.14, 0), (9, 3.63, 77713.77), (6, 1.87, 5573.14),
+     (3, 5.47, 18849.23)),
+    ((145, 4.273, 6283.076), (7, 3.92, 12566.15)),
+    ((4, 2.56, 6283.08),),
+)
 WGS84_A, WGS84_F = 6378137.0, 1.0 / 298.257223563
 
 
@@ -177,24 +236,37 @@ def _kepler(name, T):
     return torch.stack([x, y, z], -1)
 
 
-def _moon(T):
-    """Geocentric J2000 ecliptic (..., 3) position of the Moon in AU: Meeus's
-    main terms in the ecliptic of date, its longitude taken back to J2000 by
-    the general precession (5029.0966 arcsec a century)."""
-    Lp = 218.3164477 + 481267.88123421 * T
-    D = (297.8501921 + 445267.1114034 * T) * DEG
-    M = (357.5291092 + 35999.0502909 * T) * DEG
-    Mp = (134.9633964 + 477198.8675055 * T) * DEG
-    F = (93.2720950 + 483202.0175233 * T) * DEG
-    lon = (Lp + 6.288774 * torch.sin(Mp) + 1.274027 * torch.sin(2 * D - Mp) + 0.658314 * torch.sin(2 * D)
-           + 0.213618 * torch.sin(2 * Mp) - 0.185116 * torch.sin(M) - 0.114332 * torch.sin(2 * F)
-           - 5029.0966 / 3600.0 * T) * DEG
-    lat = (5.128122 * torch.sin(F) + 0.280602 * torch.sin(Mp + F) + 0.277693 * torch.sin(Mp - F)
-           + 0.173237 * torch.sin(2 * D - F)) * DEG
-    dist = (385000.56 - 20905.355 * torch.cos(Mp) - 3699.111 * torch.cos(2 * D - Mp)
-            - 2955.968 * torch.cos(2 * D) - 569.925 * torch.cos(2 * Mp)) * 1000.0 / AU_M
-    return torch.stack([dist * torch.cos(lat) * torch.cos(lon), dist * torch.cos(lat) * torch.sin(lon),
-                        dist * torch.sin(lat)], -1)
+def _vsop(series, tau):
+    """One VSOP87 series (L, B or R) at tau Julian millennia, in radians or AU."""
+    out = torch.zeros_like(tau)
+    for k, terms in enumerate(series):
+        a, b, c = (_t([term[i] for term in terms], tau.dtype, tau.device) for i in range(3))
+        out = out + (a * torch.cos(b + c * tau[..., None])).sum(-1) * tau**k
+    return out * 1e-8
+
+
+def _equator_of_date_to_j2000(T):
+    """(..., 3, 3) matrices taking mean-equator-of-date vectors to J2000
+    (Lieske 1977): P = Rz(-z) Ry(theta) Rz(-zeta) takes J2000 to the date,
+    its transpose back."""
+    arcsec = DEG / 3600.0
+    zeta = (2306.2181 * T + 0.30188 * T**2 + 0.017998 * T**3) * arcsec
+    z = (2306.2181 * T + 1.09468 * T**2 + 0.018203 * T**3) * arcsec
+    theta = (2004.3109 * T - 0.42665 * T**2 - 0.041833 * T**3) * arcsec
+    return (_rz(-z) @ _ry(theta) @ _rz(-zeta)).transpose(-1, -2)
+
+
+def _earth_heliocentric(T):
+    """J2000 equatorial (..., 3) position of the Earth's centre from the Sun
+    at T Julian centuries (TT) from J2000, in AU."""
+    tau = T / 10.0
+    lon, lat, r = _vsop(VSOP_L, tau), _vsop(VSOP_B, tau), _vsop(VSOP_R, tau)
+    ecl = torch.stack([r * torch.cos(lat) * torch.cos(lon), r * torch.cos(lat) * torch.sin(lon),
+                       r * torch.sin(lat)], -1)
+    eps = (84381.448 - 46.8150 * T - 0.00059 * T**2 + 0.001813 * T**3) * (DEG / 3600.0)
+    c, s = torch.cos(eps), torch.sin(eps)
+    of_date = torch.stack([ecl[..., 0], c * ecl[..., 1] - s * ecl[..., 2], s * ecl[..., 1] + c * ecl[..., 2]], -1)
+    return torch.einsum("...ij,...j->...i", _equator_of_date_to_j2000(T), of_date)
 
 
 def ecliptic_to_equatorial(vec):
@@ -211,13 +283,12 @@ def earth(mjd_utc, dtype=F64, heliocentric=False):
     """(..., 3) J2000 equatorial position of the Earth's centre in AU, from
     the barycentre (or from the Sun with ``heliocentric``)."""
     T = _centuries(mjd_utc, dtype)
-    emb = _kepler("emb", T)
-    helio = emb - MOON_SHARE * _moon(T)
+    helio = _earth_heliocentric(T)
     if heliocentric:
-        return ecliptic_to_equatorial(helio)
+        return helio
     total = 1.0 + sum(MASSES.values())
-    sun = -(MASSES["emb"] * emb + sum(MASSES[n] * _kepler(n, T) for n in ("jupiter", "saturn", "uranus", "neptune"))) / total
-    return ecliptic_to_equatorial(helio + sun)
+    giants = sum(MASSES[n] * ecliptic_to_equatorial(_kepler(n, T)) for n in ("jupiter", "saturn", "uranus", "neptune"))
+    return helio - (MASSES["earth"] * helio + giants) / total
 
 
 def site_vector(lat_deg, lon_deg, height_m, dtype=F64):
@@ -252,14 +323,7 @@ def site_offset(mjd_utc, site, dtype=F64):
     gmst = torch.remainder(280.46061837 + 360.98564736629 * d + 0.000387933 * Tu**2 - Tu**3 / 38710000.0, 360.0)
     # Mean equator of date: the site turned east by GMST (the frame turned by -GMST).
     of_date = torch.einsum("...ij,j->...i", _rz(-gmst * DEG), _t(site, dtype, mjd.device))
-    T = _centuries(mjd_utc, dtype)
-    arcsec = DEG / 3600.0
-    zeta = (2306.2181 * T + 0.30188 * T**2 + 0.017998 * T**3) * arcsec
-    z = (2306.2181 * T + 1.09468 * T**2 + 0.018203 * T**3) * arcsec
-    theta = (2004.3109 * T - 0.42665 * T**2 - 0.041833 * T**3) * arcsec
-    # P = Rz(-z) Ry(theta) Rz(-zeta) takes J2000 to the date; its transpose takes it back.
-    P = _rz(-z) @ _ry(theta) @ _rz(-zeta)
-    return torch.einsum("...ji,...j->...i", P, of_date)
+    return torch.einsum("...ij,...j->...i", _equator_of_date_to_j2000(_centuries(mjd_utc, dtype)), of_date)
 
 
 def observer(mjd_utc, site=None, dtype=F64):
@@ -269,11 +333,17 @@ def observer(mjd_utc, site=None, dtype=F64):
     return pos if site is None else pos + site_offset(mjd_utc, site, dtype)
 
 
-def correct(directions, mjd_utc, distance, site=None):
+def _observer(mjd_utc, site, observer_au, like):
+    E = observer(mjd_utc, site, like.dtype) if observer_au is None else _t(observer_au, like.dtype)
+    return E.to(like.device)
+
+
+def correct(directions, mjd_utc, distance, site=None, observer_au=None):
     """Corrected (..., 3) unit directions of observed (..., 3) directions at
     an assumed barycentric distance; NaN where the line of sight misses the
-    sphere."""
-    E = observer(mjd_utc, site, directions.dtype).to(directions.device)
+    sphere. ``observer_au``, (..., 3) barycentric positions, replaces the
+    observer of ``mjd_utc`` and ``site``."""
+    E = _observer(mjd_utc, site, observer_au, directions)
     eu = (E * directions).sum(-1)
     disc = eu**2 + distance**2 - (E * E).sum(-1)
     s = -eu + torch.sqrt(torch.clamp(disc, min=0.0))
@@ -283,19 +353,12 @@ def correct(directions, mjd_utc, distance, site=None):
     return torch.where(ok[..., None], P, float("nan"))
 
 
-def invert(directions, mjd_utc, distance, site=None):
+def invert(directions, mjd_utc, distance, site=None, observer_au=None):
     """Observed (..., 3) unit directions of barycentric (..., 3) directions at
-    ``distance``."""
-    E = observer(mjd_utc, site, directions.dtype).to(directions.device)
+    ``distance``; ``observer_au`` as in ``correct``."""
+    E = _observer(mjd_utc, site, observer_au, directions)
     rel = distance * directions - E
     return rel / torch.linalg.vector_norm(rel, dim=-1, keepdim=True)
-
-
-def ebd_gap_arcsec(original, fitted, xs, ys, mjd_utc, distance, site=None):
-    """Per sampled pixel, the angle between a fitted EBD WCS's direction and
-    the corrected direction of the original WCS's."""
-    want = correct(original.pixel_to_vec(xs, ys), mjd_utc, distance, site)
-    return separation_arcsec(fitted.pixel_to_vec(xs, ys), want)
 
 
 def ecliptic_angle(common, x, y, step_deg=1e-3):

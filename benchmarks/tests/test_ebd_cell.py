@@ -2,18 +2,21 @@
 (``ebd_cases.tiny_cell``): the whole run comes out correct, traced and
 not, with no module of JAX or the JAX package loaded; the control (float32
 coordinates, bfloat16 planes) fails at least one limit where the program
-passes every one; and each of the loop's faults makes ``correct`` false."""
+passes every one; each of the loop's faults makes ``correct`` false; and
+the judge's own pieces: the reference's results path, the components of
+its clustering, and the inputs it reads left as they were."""
 
 import json
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
 from benchmarks import run as bench_run
 from benchmarks.loops import ebd_search
-from benchmarks.reference import ebd
+from benchmarks.reference import ebd, judge
 from benchmarks.tests.ebd_cases import CELL, tiny_run
 
 QUANTITIES = ("reproject_s", "coords_s", "resample_s", "build_s", "load_results_s", "uploaded_gib")
@@ -85,3 +88,48 @@ def test_the_traffic_and_the_configuration_agree():
     assert (lo + hi) / 2 == pytest.approx(ecl, abs=1e-6)
     with pytest.raises(ValueError, match="patch"):
         ebd_search.Cell({"name": CELL}, dict(config, patch_rows=64), traffic, 1, "cpu")
+
+
+def test_the_reference_results_path_keeps_the_programs_final_rows():
+    """``missed`` stands on the reference's results path: at this size it
+    keeps the program's final rows, row for row, from the listed rows."""
+    _, _, run = tiny_run()
+    run.setup(warm=False)
+    run.window(0.0)
+    run.release()
+    ref = run.reference_stacks()[0]
+    (record,) = run.records
+    kept = ebd_search.reference_rows(ref, record["raw"], run.settings)
+    rows = lambda table: sorted(zip(*(np.asarray(table[k]).tolist() for k in ("x", "y", "vx", "vy"))))
+    assert rows(kept) == rows(record["final"]) and len(kept["x"]) >= 1
+    assert judge.missed_objects(kept, ref.objects, run.settings, ref.zeroed) == 0
+
+
+def test_the_window_leaves_the_judged_arrays_as_they_were():
+    """The judge reads the host arrays the window searched, so the program
+    must not write into them."""
+    _, _, run = tiny_run()
+    run.setup(warm=False)
+    before = [[a.copy() for a in unit.sci + unit.var] for unit in run.units]
+    run.window(0.0)
+    run.release()
+    assert run.stacks is None and run.units is not None
+    for unit, copies in zip(run.units, before):
+        assert all(np.array_equal(a, b) for a, b in zip(unit.sci + unit.var, copies))
+
+
+@pytest.mark.parametrize("n, eps", [(1, 1.0), (40, 3.0), (400, 6.0), (400, 12.0)])
+def test_components_are_those_of_the_distance_graph(n, eps):
+    points = np.random.default_rng(n).uniform(0.0, 40.0, size=(n, 4))
+    got = ebd_search.components(points, eps, torch.device("cpu"))
+    near = np.sqrt(((points[:, None] - points[None]) ** 2).sum(-1)) <= eps
+    want = np.full(n, -1)
+    for start in range(n):  # a breadth-first labelling by the smallest index
+        if want[start] >= 0:
+            continue
+        want[start], todo = start, [start]
+        while todo:
+            for j in np.flatnonzero(near[todo.pop()] & (want < 0)):
+                want[j] = start
+                todo.append(j)
+    assert np.array_equal(got, want)

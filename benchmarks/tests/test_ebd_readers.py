@@ -1,5 +1,6 @@
 """The readers of the reprojection's spans and counters
-(``benchmarks/metrics/{reproject_s,coords_s,resample_s,resample_roofline}.py``)
+(``benchmarks/metrics/{reproject_s,coords_s,resample_s,resample_roofline,
+reproject_uploaded_gib}.py``)
 on synthetic tracer records, a synthetic device trace and a stand-in
 ``ctx``; each reads nothing from a program without those spans."""
 
@@ -29,7 +30,7 @@ def _work_unit(t, images=3):
     for i in range(images):
         recs += [_rec("reproject.coords", t + i, t + i + 0.25),
                  _rec("reproject.resample", t + i + 0.25, t + i + 0.75, {"reproject.taps": 49}),
-                 _rec("reproject.upload", t + i + 0.3, t + i + 0.5, {"bytes.h2d": 100})]
+                 _rec("reproject.upload", t + i + 0.3, t + i + 0.5, {"reproject.bytes_h2d": 100})]
     return recs + [_rec("search", t + 4.5, t + 5.0)]
 
 
@@ -49,6 +50,7 @@ def records(monkeypatch):
     ("reproject_s", 4.0),
     ("coords_s", (3 + 5) * 0.25 / 2),
     ("resample_s", (3 + 5) * 0.5 / 2),
+    ("reproject_uploaded_gib", (3 + 5) * 100 / 2 / 2**30),
 ])
 def test_span_readers_take_the_mean_over_work_units(records, quantity, expected):
     assert bench_run.reader(f"{quantity}.{CELL}")(_ctx(100.0, 110.0)) == pytest.approx(expected)
@@ -65,7 +67,8 @@ def test_resample_roofline_by_hand(records):
     assert got == pytest.approx(100.0 * max(ops / table["fp32_flops"], nbytes / table["hbm_bytes"]) / 0.6)
 
 
-@pytest.mark.parametrize("quantity", ["reproject_s", "coords_s", "resample_s", "resample_roofline"])
+@pytest.mark.parametrize("quantity", ["reproject_s", "coords_s", "resample_s", "resample_roofline",
+                                      "reproject_uploaded_gib"])
 def test_a_program_without_the_spans_reads_nothing(monkeypatch, quantity):
     monkeypatch.setattr(program_spans, "program_records", lambda: [_rec("search", 100.5, 101.0)])
     trace = tr.DeviceTrace(device=[("k", 100.6, 100.7)], spans=[("window", 99.0, 107.0), ("reproject", 100.0, 100.4)])

@@ -7,8 +7,8 @@ float64 (exact TAN math, ``compute_source_coordinates``), as does the
 stencil radius; the layer goes to the device once, the science and variance
 planes are resampled there with one set of weights, and only the outputs
 come back. The copies to the device are traced as ``reproject.upload`` and
-counted in ``bytes.h2d``; each resampled image adds its stencil's taps to
-``reproject.taps``.
+counted in ``reproject.bytes_h2d`` (``bytes.h2d`` stays the search build's
+count); each resampled image adds its stencil's taps to ``reproject.taps``.
 
 - ``method="adaptive"`` (default): a DeForest-style Gaussian-footprint
   resample. Each output pixel's kernel is shaped by the local Jacobian of
@@ -242,7 +242,7 @@ def resample_layer(
 
     with tracing.span("reproject.upload"):
         planes_h = np.stack([sci, var])
-        tracing.count("bytes.h2d", planes_h.nbytes + coords.nbytes)
+        tracing.count("reproject.bytes_h2d", planes_h.nbytes + coords.nbytes)
         planes = torch.from_numpy(planes_h).to(dev)
         cy = torch.from_numpy(coords[0]).to(dev)
         cx = torch.from_numpy(coords[1]).to(dev)

@@ -17,7 +17,7 @@ resampling, with the copies to the device in ``reproject.upload``) and
 ``reproject.mosaic``. Counters: ``reproject.images`` (source images),
 ``reproject.layers``, ``reproject.taps`` (stencil taps of each resampled
 image), ``reproject.collisions`` (pixels masked because two constituents
-cover them) and the resampling's copies in ``bytes.h2d``.
+cover them) and the resampling's copies in ``reproject.bytes_h2d``.
 """
 
 import logging

@@ -6,13 +6,16 @@ overlap (a collision), then the search and the positions of its rows; and
 the reprojection's spans and counters.
 
 Tolerances, each with its reason:
-- EBD WCSes and sky positions: 1 arcsec. The port's Earth ephemeris (a
-  solar series and the giant planets' pull) and the reference's (Standish's
-  Keplerian orbits and the Moon) each sit within about 0.25 arcsec of
-  DE432s at 40-50 AU (the golden values), and differ from each other by
-  0.33 arcsec here; the EBD WCS fit adds its own residual, under 0.01
-  arcsec on a 48 x 48 CCD. A reprojection in the original frame is off by
-  tens of arcseconds.
+- EBD WCSes and sky positions, judged from the port's own observer
+  positions: 1e-3 arcsec. The EBD WCS fit's residual is under 1e-6 arcsec
+  on a 48 x 48 CCD (about 3e-3 on a whole DECam CCD), the positions'
+  float64 rounding under 1e-9; a WCS one pixel off reads 0.26 arcsec, a
+  reprojection in the original frame tens of arcseconds.
+- the observer: 1.5e-4 AU (0.77 arcsec at 40 AU). The port's Earth (a
+  low-precision solar series and the giant planets' pull, equal to the JAX
+  package's) sits 9.1e-5-9.4e-5 AU from the reference's (VSOP87, within
+  about 0.06 arcsec of DE432s at 50 AU) on these nights; the Sun's
+  barycentric offset alone is about 5e-3 AU.
 - layers: 1e-4 of the noise's sigma for the science, of the level for the
   variance. The port resamples in float32 with the coordinates cast to
   float32 and its Jacobian from differences one pixel apart, the reference
@@ -37,12 +40,14 @@ from benchmarks.tests.ebd_cases import tiny_cell
 from kbmod_tpu_torch import tracing
 from kbmod_tpu_torch.configuration import SearchConfiguration
 from kbmod_tpu_torch.core.image_stack_py import ImageStackPy
+from kbmod_tpu_torch.geom.ecliptic import observer_position_equatorial
 from kbmod_tpu_torch.geom.wcs import WCS
 from kbmod_tpu_torch.reprojection import reproject_work_unit
 from kbmod_tpu_torch.run_search import SearchRunner
 from kbmod_tpu_torch.work_unit import WorkUnit
 
-ARCSEC = 1.0
+ARCSEC = 1e-3
+OBSERVER_AU = 1.5e-4
 LAYER = 1e-4
 FOOT_NEAR = 1e-5
 # The patch's last column lies at CCD A's column 39 + dx; CCD B starts at
@@ -97,9 +102,25 @@ def test_the_case_has_one_mosaic():
     assert unit.exposures[3].ccd == 1 and unit.exposures[3].time == unit.exposures[2].time
 
 
+def _observer(traffic, times):
+    """The port's barycentric observer positions at the MJDs, in AU."""
+    site_m = tuple(float(v) * ebd.AU_M for v in ebd_search.site(traffic))
+    return torch.as_tensor(observer_position_equatorial(np.asarray(times, np.float64), site_m)).reshape(-1, 3)
+
+
+def test_observer_against_the_reference():
+    config, traffic, unit = _unit()
+    times = [e.time for e in unit.exposures]
+    gap = torch.linalg.vector_norm(_observer(traffic, times) - ebd.observer(torch.as_tensor(times),
+                                                                           ebd_search.site(traffic)), dim=-1)
+    assert float(gap.max()) < OBSERVER_AU
+    without_site = ebd.observer(torch.as_tensor(times))
+    assert float(torch.linalg.vector_norm(_observer(traffic, times) - without_site, dim=-1).min()) > 2e-5
+
+
 def test_ebd_wcses_against_the_reference(reprojected):
     traffic, unit, work, out = reprojected
-    site = ebd_search.site(traffic)
+    seen_from = _observer(traffic, [e.time for e in unit.exposures])
     h, w = unit.sci[0].shape
     ys, xs = np.meshgrid(np.arange(0, h, 3.0), np.arange(0, w, 3.0), indexing="ij")
     uncorrected = 0.0
@@ -107,12 +128,12 @@ def test_ebd_wcses_against_the_reference(reprojected):
         fitted = work.org_img_meta["ebd_wcs"][i]
         original = ebd.Tan(e.crpix, e.crval, e.cd)
         got = ebd.Tan(fitted.crpix, fitted.crval, fitted.cd).pixel_to_vec(xs, ys)
-        want = ebd.correct(original.pixel_to_vec(xs, ys), e.time, 40.0, site)
+        want = ebd.correct(original.pixel_to_vec(xs, ys), e.time, 40.0, observer_au=seen_from[i])
         assert float(ebd.separation_arcsec(got, want).max()) < ARCSEC, i
         uncorrected = max(uncorrected, float(ebd.separation_arcsec(original.pixel_to_vec(xs, ys), want).max()))
     # The original WCSes themselves are far off: the correction is there
     # (a few arcsec at opposition on the first night, more a night later).
-    assert uncorrected > 20 * ARCSEC
+    assert uncorrected > 1.0
 
 
 def test_layers_against_the_reference(reprojected):
@@ -169,7 +190,7 @@ def test_search_and_positions_against_the_reference(tmp_path):
     z = torch.as_tensor(times - times[0])
     col = lambda k: torch.as_tensor(np.asarray(results[k], np.float64))[:, None]
     glob = ebd_search.common_tan(traffic).pixel_to_vec(col("x") + col("vx") * z, col("y") + col("vy") * z)
-    seen = ebd.invert(glob, torch.as_tensor(times).expand(glob.shape[:-1]), 40.0, ebd_search.site(traffic))
+    seen = ebd.invert(glob, times, 40.0, observer_au=_observer(traffic, times).expand(glob.shape))
     for (ra, dec), want in ((("global_ra", "global_dec"), glob), (("img_ra", "img_dec"), seen)):
         got = ebd.unit(np.asarray(results.table[ra]), np.asarray(results.table[dec]))
         assert got.shape == want.shape
@@ -217,8 +238,10 @@ def test_reprojection_spans_and_counters():
     assert totals["reproject.taps"] == 7 * 7 * 7  # radius 3 at the common frame's scale
     assert totals["reproject.collisions"] > 0
     H, W = traffic["stack"]["height"], traffic["stack"]["width"]
-    # Each CCD's science and variance, and its float32 coordinates.
-    assert totals["bytes.h2d"] == sum(2 * s.nbytes + 2 * H * W * 4 for s in unit.sci)
+    # Each CCD's science and variance, and its float32 coordinates; the
+    # search build's counter holds none of them.
+    assert totals["reproject.bytes_h2d"] == sum(2 * s.nbytes + 2 * H * W * 4 for s in unit.sci)
+    assert "bytes.h2d" not in totals
     tracing.reset()
     reproject_work_unit(_work_unit(config, traffic, unit), _common(traffic), frame="ebd", device="cpu")
     assert tracing.records() == [] and tracing.totals() == {}
